@@ -1,9 +1,10 @@
-"""Where the time of bench.py's frame goes on the card (litbox_tpu_torch).
+"""Where the time of bench.py's frame and of the make_frame_fn pipeline goes
+on the card (litbox_tpu_torch).
 
     python3 chip_profile.py [trace.json]
 
 Uses chip_smoke.py's scene and trace options (bench.py's frame at 256^2,
-D=128, 2,000,000 photons, 524,288 bounce chains). Prints two JSON lines:
+D=128, 2,000,000 photons, 524,288 bounce chains). Prints three JSON lines:
 
 - "stages": CUDA-event times of the frame's stages, median of 5 after a
   warm-up: the direct stamp histogram, the bounce chains, the injection,
@@ -12,6 +13,9 @@ D=128, 2,000,000 photons, 524,288 bounce chains). Prints two JSON lines:
   time by kernel name (top 15), and the device-busy share of the window
   (summed kernel time over the window's wall time; one stream, so kernels
   do not overlap). With a path argument the chrome trace is written there.
+- "pipeline_profile": the same for chip_smoke.py's make_frame_fn pipeline
+  (480x272, S=640, D=128, 1,000,000 photons, float32 UNet of size 5): three
+  trace stages alone, then two whole frames.
 
 Needs one CUDA device; imports torch, numpy and litbox_tpu_torch only.
 """
@@ -73,14 +77,47 @@ def main() -> None:
     }
     print(json.dumps({"stages": stages}))
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
+    def bench_window():
+        nonlocal src
         for _ in range(3):
             src, _ = rbt.rbt_trace_frame(fields, src, gb, scene.lights,
                                          scene.field_textures, brdf, gen, n, -1, **opts)
         to_hdr(rbt.resolve_raw(fields, src, w, w), 1.0, gb)
+
+    trace_path = sys.argv[1] if len(sys.argv) > 1 else None
+    print(json.dumps({"profile": profile_window(
+        "3 trace frames + 1 resolve + HDR", bench_window, trace_path)}))
+    del fields, src, flat, vals, flat_d, vals_d, flat_b, vals_b
+    torch.cuda.empty_cache()
+
+    # The make_frame_fn pipeline of chip_smoke.py (480x272, S=640, D=128,
+    # 1,000,000 photons, mono UNet of size 5 in float32): its trace stage
+    # alone, then whole frames.
+    _, _, _, pfields, _, frame = smoke.make_pipeline()
+    pgen = torch.Generator(device="cuda").manual_seed(0)
+    psrc = rbt.zero_sources(pfields)
+
+    def pipeline_traces():
+        for _ in range(3):
+            frame.stages["trace"](psrc, pgen)
+
+    def pipeline_frames():
+        for i in range(2):
+            frame(psrc, float(i + 1), pgen)
+
+    print(json.dumps({"pipeline_profile": [
+        profile_window("3 pipeline trace stages", pipeline_traces),
+        profile_window("2 pipeline frames", pipeline_frames)]}))
+
+
+def profile_window(label: str, body, trace_path: str | None = None) -> dict:
+    """torch.profiler over body(): wall time, summed kernel time (one stream,
+    so kernels do not overlap), the busy share and the top 15 kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        body()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # Device-side events only: the aten ops' own rows repeat their kernels' time.
@@ -90,14 +127,13 @@ def main() -> None:
                and evt.self_device_time_total > 0]
     kernels.sort(reverse=True)
     busy_us = sum(k[0] for k in kernels)
-    if len(sys.argv) > 1:
-        prof.export_chrome_trace(sys.argv[1])
-    print(json.dumps({"profile": {
-        "window": "3 trace frames + 1 resolve + HDR",
-        "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-        "device_busy_share": busy_us / wall_us,
-        "top_kernels": [dict(name=k[1][:90], device_ms=k[0] / 1e3, calls=k[2])
-                        for k in kernels[:15]]}}))
+    if trace_path:
+        prof.export_chrome_trace(trace_path)
+    return {"window": label, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / wall_us,
+            "kernel_launches": sum(k[2] for k in kernels),
+            "top_kernels": [dict(name=k[1][:90], device_ms=k[0] / 1e3, calls=k[2])
+                            for k in kernels[:15]]}
 
 
 if __name__ == "__main__":

@@ -2,16 +2,32 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from litbox_tpu_torch/csrc (one nvcc call),
-holds each kernel against its plain PyTorch version at the shapes of
-bench.py's frame and of the realtime 1080p profile, times both, then drives
-the main path once: bench.py's scene at 256^2, rotated fields with 128 bins,
-10 trace frames of 2,000,000 photons with 524,288 bounce chains, one
-resolve and the HDR conversion. It checks the output and that every kernel
-was launched by that run. Any failed check raises, so the exit code is not
-0. The last line is the device record; the lines before it carry each
-phase with its wall seconds, the card's name and power limit, and one JSON
-line per phase with its numbers.
+Builds the port's CUDA kernels from litbox_tpu_torch/csrc (one nvcc call)
+and runs four phases, each printed with its wall seconds:
+
+- kernels: each kernel (K1 scan, K2 shear, K3 shear_reduce, K4 fused
+  rotate-and-sum) held against its plain PyTorch version at the shapes of
+  bench.py's frame, of the pipeline below and of the realtime 1080p
+  profile's per-frame resolve, each timed (CUDA events, median of 7) beside
+  the bound and a library yardstick where one exists.
+- frame: bench.py's frame at 256^2 (rotated fields with 128 bins, 10 trace
+  frames of 2,000,000 photons with 524,288 bounce chains, one resolve and
+  the HDR conversion) with its checks.
+- pipeline: engine.pipeline.make_frame_fn at the realtime profile's sim
+  size (480x272, S=640, D=128) with PipelineConfig's defaults (1,000,000
+  photons, 2 bounces, the mono UNet of size 5 with 32 features and weights
+  from a fixed seed, UE5 tone map): 10 frames, the time of each stage,
+  photons/s, peak memory, and checks of the output, of the analytic direct
+  energy, of the last resolve against the plain path and of the card's
+  denoiser against the CPU.
+- fused_resolve: the pipeline's last sources resolved through K1 + K4 and
+  through resolve_raw (K1 -> K2 -> K3), with all bins and with 1/4 of them.
+
+Every kernel counter is set to 0 just before a path is driven and read just
+after; a kernel of the path that was not launched, or any failed check,
+raises, so the exit code is not 0. The lines before the last carry one JSON
+line per phase, the kernels line and the card's name and power limit; the
+last line is the device record.
 
 Needs one CUDA device, nvcc and nvidia-smi; imports torch, numpy and
 litbox_tpu_torch only.
@@ -26,8 +42,12 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from litbox_tpu_torch.core import luts
+from litbox_tpu_torch.core.types import REALTIME_1080P
+from litbox_tpu_torch.engine import pipeline
+from litbox_tpu_torch.nn.unet import LitboxDenoiserNet
 from litbox_tpu_torch.ops import attnscan, cuda_lib, rotate
 from litbox_tpu_torch.scene import SceneBuilder, rasterize
 from litbox_tpu_torch.sim import rbt
@@ -54,9 +74,38 @@ KERNELS = {
     # version: up to 128 float32 roundings apart.
     "shear_reduce": dict(source="litbox_tpu_torch/csrc/rotate.cu",
                          replaces="litbox_tpu/ops/rotate.py:210", tol=2e-5),
+    # Up to 128 images summed in order in the kernel, pairwise in the plain
+    # version, as for shear_reduce.
+    "rotate_planar_sum_fused": dict(source="litbox_tpu_torch/csrc/rotfused.cu",
+                                    replaces="litbox_tpu/ops/rotate.py:458",
+                                    tol=2e-5),
 }
 COUNTERS = {"attenuation_scan_rows": attnscan.attenuation_scan_rows,
-            "shear": rotate.shear, "shear_reduce": rotate.shear_reduce}
+            "shear": rotate.shear, "shear_reduce": rotate.shear_reduce,
+            "rotate_planar_sum_fused": rotate.rotate_planar_sum_fused}
+# Operations per image and output texel of the fused rotation: 7 two-tap
+# lerps (3 each) and 7 shift evaluations (4 each), csrc/rotfused.cu.
+ROT3_OPS = 49
+UNET_SEED = 5
+
+
+# The kernels each path must launch: resolve_raw runs K1 -> K2 -> K3, the
+# fused resolve K1 -> K4.
+RESOLVE_KERNELS = ("attenuation_scan_rows", "shear", "shear_reduce")
+FUSED_KERNELS = ("attenuation_scan_rows", "rotate_planar_sum_fused")
+
+
+def reset_counts() -> None:
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def unlaunched(launches: dict, names) -> list:
+    return [n for n in names if launches[n] == 0]
 
 
 def phase(name: str, t0: float, **info) -> None:
@@ -161,18 +210,69 @@ def check_shear_reduce(gen, n, s, row_lo, row_hi) -> dict:
     return out
 
 
+def check_rotfused(gen, s, stride, delta) -> dict:
+    """K4 on 3 channels of the bins 0, stride, 2*stride, ... of N_BINS."""
+    base = tuple(-i * 2 * np.pi / N_BINS for i in range(0, N_BINS, stride))
+    d = len(base)
+    chans = tuple(torch.rand((d, s, s), generator=gen, device="cuda") for _ in range(3))
+    if isinstance(delta, float) and delta:
+        delta = torch.tensor(delta, device="cuda")  # traced, as the jitter phase
+    run = lambda: rotate.rotate_planar_sum_fused(chans, base, delta)
+    plain = lambda: rotate.rotate_planar_sum_fused_plain(chans, base, delta)
+    ref = plain()
+    out = compare("rotate_planar_sum_fused", run(), ref)
+    # Yardstick: affine_grid + grid_sample rotating every image by its angle
+    # (bilinear, zero padding), summed per channel. Another discretization
+    # of the same rotation, so its deviation is reported, not held.
+    x = torch.stack(chans).reshape(3 * d, 1, s, s)
+    ang = torch.tensor(base, device="cuda") + delta
+
+    def library():
+        c, sn, z = torch.cos(ang), torch.sin(ang), torch.zeros_like(ang)
+        theta = torch.stack([torch.stack([c, -sn, z], -1),
+                             torch.stack([sn, c, z], -1)], 1).repeat(3, 1, 1)
+        grid = F.affine_grid(theta, (3 * d, 1, s, s), align_corners=False)
+        return F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=False).reshape(3, d, s, s).sum(1)
+
+    lib = library()
+    runs = len(rotate._quadrant_groups(base))
+    b, by = bound(4 * (3 * d * s * s + 3 * runs * s * s), ROT3_OPS * 3 * d * s * s)
+    out.update(shape=f"3x({d},{s},{s}) runs {runs} delta "
+                     f"{float(delta):.6f}{' (tensor)' if torch.is_tensor(delta) else ''}",
+               ms=time_ms(run), plain_ms=time_ms(plain), bound_ms=b, bound_by=by,
+               library_ms=time_ms(library),
+               library="F.affine_grid + F.grid_sample, summed",
+               library_max_dev_rel=float((lib - ref).abs().max() / ref.abs().max()),
+               library_mean_dev_rel=float((lib - ref).abs().mean() / ref.abs().mean()))
+    del chans, x, lib, ref
+    return out
+
+
 def kernels_phase() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     d = N_BINS
-    # bench.py's resolve: S=384, 3*D images, rows 64..320. The realtime 1080p
-    # profile (core/types.py REALTIME_1080P): S=640, one group of 16 resolved
-    # per frame from a two-tracer source, 3*8 images, rows 128..512.
+    # bench.py's resolve: S=384, 3*D images, rows 64..320. The pipeline's
+    # resolve (make_frame_fn at REALTIME_1080P's sim size 480x272): S=640,
+    # all bins from a one-tracer source, 3*D images, rows 128..512. The
+    # realtime profile's per-frame resolve: one group of 16 from a two-tracer
+    # source, 3*8 images, rows 128..512.
+    # K4: bench.py's and the realtime resolve shapes, with delta 0 and a
+    # traced delta of -0.3 bins, and the realtime shape at 1/4 of the bins.
+    jitter = -0.3 * 2 * np.pi / d
     results = {
         "attenuation_scan_rows": (check_scan(gen, d, 384, 1, 0, 1),
+                                  check_scan(gen, d, 640, 1, 0, 1),
                                   check_scan(gen, d, 640, 16, 3, 2)),
-        "shear": (check_shear(gen, 3 * d, 384), check_shear(gen, 3 * d // 16, 640)),
+        "shear": (check_shear(gen, 3 * d, 384), check_shear(gen, 3 * d, 640),
+                  check_shear(gen, 3 * d // 16, 640)),
         "shear_reduce": (check_shear_reduce(gen, 3 * d, 384, 64, 320),
+                         check_shear_reduce(gen, 3 * d, 640, 128, 512),
                          check_shear_reduce(gen, 3 * d // 16, 640, 128, 512)),
+        "rotate_planar_sum_fused": (
+            check_rotfused(gen, 384, 1, 0.0), check_rotfused(gen, 640, 1, 0.0),
+            check_rotfused(gen, 384, 1, jitter), check_rotfused(gen, 640, 1, jitter),
+            check_rotfused(gen, 640, 4, 0.0)),
     }
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -213,8 +313,7 @@ def frame_phase() -> dict:
     torch.cuda.synchronize()
 
     # The main path, with every launch counter at 0 just before it.
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    reset_counts()
     gen = torch.Generator(device="cuda").manual_seed(0)
     src = rbt.zero_sources(fields)
     t0 = time.perf_counter()
@@ -228,12 +327,12 @@ def frame_phase() -> dict:
     hdr = to_hdr(raw, float(FRAMES), gb)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
     failures = []
-    if any(v == 0 for v in launches.values()):
-        failures.append(f"a kernel of the path was not launched: {launches}")
+    if missing := unlaunched(launches, RESOLVE_KERNELS):
+        failures.append(f"kernels of the path were not launched: {missing}")
     if hdr.shape != (RESOLUTION, RESOLUTION, 3) or not bool(torch.isfinite(hdr).all()):
         failures.append("HDR output is not finite of shape (256, 256, 3)")
     elif float(hdr.min()) < 0:
@@ -281,6 +380,266 @@ def frame_phase() -> dict:
                 hdr_mean=float(hdr.mean()))
 
 
+def _smooth(a: np.ndarray, n: int = 3) -> np.ndarray:
+    for _ in range(n):
+        a = (np.roll(a, 1, 0) + np.roll(a, -1, 0) + np.roll(a, 1, -1)
+             + np.roll(a, -1, -1) + a) / 5.0
+    return a
+
+
+def build_pipeline_scene(width: int, height: int, seed: int = 0):
+    """A night scene modelled on demo/abduction.build_demo_scene (:69-99) at
+    width x height, with textures made with numpy from `seed`: haze, hill and
+    cloud sprites, two point lights (the analytic direct path), a spot light
+    (the MC scatter direct path), a rect with particle alignment (BRDF) and a
+    mirror ellipse, and one light of each remaining kind (laser, ambient,
+    field with its texture, directional)."""
+    rng = np.random.default_rng(seed)
+    w, h = float(width), float(height)
+    ys = (np.arange(256) + 0.5) / 256
+
+    def hills(level, amp):
+        ridge = level + amp * (_smooth(rng.uniform(-1, 1, 256), 12) * 4)
+        mask = (ys[:, None] < ridge[None, :]).astype(np.float32)
+        return np.stack([mask] * 4, -1)
+
+    def cloud():
+        c = _smooth(rng.uniform(0, 1, (256, 256)), 6).astype(np.float32)
+        c = np.clip((c - c.min()) / (c.max() - c.min()), 0, 1)
+        return np.stack([c] * 4, -1)
+
+    b = SceneBuilder(texture_size=256, field_texture_size=64)
+    b.add_rect((w / 2, h / 2), (w, h), log_density=-2.6)               # night haze
+    b.add_point_light((w * 0.82, h * 0.86), radius=5.0, color=(0.75, 0.8, 1.0),
+                      intensity=0.9, bounces=2)                          # moon
+    b.add_sprite((w / 2, h * 0.16), (w / 2, h * 0.16), color=(0.25, 0.3, 0.2, 1),
+                 log_density=-0.15, texture=hills(0.55, 0.35))
+    b.add_sprite((w / 2, h * 0.10), (w / 2, h * 0.10), color=(0.15, 0.18, 0.12, 1),
+                 log_density=0.0, texture=hills(0.5, 0.45))
+    b.add_sprite((w * 0.35, h * 0.55), (w * 0.3, h * 0.12), log_density=-1.0,
+                 texture=cloud())
+    b.add_sprite((w * 0.7, h * 0.62), (w * 0.25, h * 0.1), log_density=-1.1,
+                 texture=cloud())
+    b.add_point_light((w * 0.55, h * 0.72), radius=4.0, color=(0.6, 1.0, 0.7),
+                      intensity=1.3, bounces=2)                          # UFO body
+    b.add_spot_light((w * 0.55, h * 0.70), (w * 0.04, h * 0.015), rotation=0.2,
+                     color=(0.7, 1.0, 0.6), intensity=2.2, bounces=2)    # beam
+    b.add_rect((w * 0.2, h * 0.35), (w * 0.05, h * 0.02), rotation=0.3,
+               color=(0.9, 0.9, 0.95, 1), log_density=0.5, alignment=0.6)
+    b.add_ellipse((w * 0.85, h * 0.3), (w * 0.03, h * 0.05),
+                  color=(0.8, 0.8, 0.8, 1), log_density=0.5, alignment=1.0)
+    b.add_laser_light((w * 0.1, h * 0.9), (3.0, h * 0.2), rotation=-0.6,
+                      color=(1.0, 0.2, 0.2), intensity=1.0, bounces=2)
+    b.add_ambient_light(color=(0.2, 0.2, 0.35), intensity=0.5, bounces=1)
+    b.add_field_light((w * 0.5, h * 0.4), (w * 0.06, h * 0.06), rotation=0.4,
+                      intensity=1.2, texture=rng.uniform(0, 1, (64, 64, 4)))
+    b.add_directional_light(rotation=0.5, color=(1.0, 0.9, 0.7), intensity=0.6,
+                            bounces=2)
+    scene = b.build(max_lights=8, max_shapes=8, device="cuda")
+    return scene, rasterize(scene, height, width)
+
+
+def unet_flop(cfg, batch: int, height: int, width: int) -> int:
+    """Convolution FLOPs (2 per multiply-add) of one pass of the config's
+    mono UNet on (batch, height, width, 1), counted from the layers' output
+    shapes on the meta device."""
+    with torch.device("meta"):
+        net = LitboxDenoiserNet(cfg.unet_size, cfg.initial_features)
+    flop = [0]
+
+    def count(m, _, out):
+        if isinstance(m, torch.nn.Conv2d):
+            flop[0] += 2 * out.numel() * m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+
+    for m in net.modules():
+        m.register_forward_hook(count)
+    net(torch.empty((batch, height, width, 1), device="meta"))
+    return flop[0]
+
+
+def make_pipeline():
+    """The pipeline phase's frame function: the realtime profile's sim size
+    (480x272, so S=640) with D=128, PipelineConfig's defaults and the mono
+    UNet's weights drawn on the card from UNET_SEED. Convolutions and matrix
+    products run in full float32 (cuDNN would take TF32 otherwise)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prof = REALTIME_1080P
+    cfg = pipeline.PipelineConfig()
+    scene, gb = build_pipeline_scene(prof.sim_width, prof.sim_height)
+    brdf = torch.from_numpy(luts.brdf_lut()).cuda()
+    fields = rbt.precompute_rotated_fields(gb, n_bins=prof.n_bins)
+    torch.manual_seed(UNET_SEED)
+    with torch.device("cuda"):
+        weights = LitboxDenoiserNet(cfg.unet_size, cfg.initial_features).state_dict()
+    frame = pipeline.make_frame_fn(cfg, gb, scene.lights, scene.field_textures,
+                                   brdf, fields, model_variables=weights)
+    # One frame on its own buffers first: allocations and cuDNN plans.
+    frame(rbt.zero_sources(fields), 1.0, torch.Generator(device="cuda").manual_seed(99))
+    torch.cuda.synchronize()
+    return cfg, scene, gb, fields, weights, frame
+
+
+def pipeline_phase() -> tuple[dict, tuple]:
+    """make_frame_fn at the realtime sim size with PipelineConfig's defaults.
+    Returns the phase's numbers and (fields, sources, height, width) of its
+    last frame for the fused-resolve phase."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg, scene, gb, fields, weights, frame = make_pipeline()
+    height, width = gb.height, gb.width
+
+    reset_counts()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    src = rbt.zero_sources(fields)
+    t0 = time.perf_counter()
+    for i in range(FRAMES):
+        src, display, hdr = frame(src, float(i + 1), gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    # Where a frame's time goes: 3 more frames through the same stages,
+    # with CUDA events between them (median per stage), and each stage's
+    # peak memory above what was allocated before it.
+    stages = frame.stages
+    times = {k: [] for k in stages}
+    stage_peak = {}
+    for i in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+        x = src
+        ev[0].record()
+        for j, (k, fn) in enumerate(stages.items()):
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if k == "trace":
+                x = src = fn(src, gen)
+            elif k == "resolve_hdr":
+                x = fn(src, float(FRAMES + i + 1))
+            else:
+                x = fn(x)
+            ev[j + 1].record()
+            stage_peak[k] = torch.cuda.max_memory_allocated() - base
+        ev[-1].synchronize()
+        for j, k in enumerate(stages):
+            times[k].append(ev[j].elapsed_time(ev[j + 1]))
+    stage_ms = {k: statistics.median(v) for k, v in times.items()}
+    # The denoiser with TF32 convolutions, for ROADMAP C1's choice of
+    # precision.
+    torch.backends.cudnn.allow_tf32 = True
+    denoise_tf32_ms = time_ms(lambda: stages["denoise"](hdr), reps=3, warmup=1)
+    torch.backends.cudnn.allow_tf32 = False
+
+    failures = []
+    if missing := unlaunched(launches, RESOLVE_KERNELS):
+        failures.append(f"kernels of the path were not launched: {missing}")
+    if display.shape != (height, width, 3) or not bool(torch.isfinite(display).all()):
+        failures.append("display is not finite of shape (H, W, 3)")
+    elif not (float(display.min()) >= 0 and float(display.max()) <= 1):
+        failures.append(f"display outside [0, 1]: [{float(display.min())}, "
+                        f"{float(display.max())}]")
+    if not bool(torch.isfinite(hdr).all()) or float(hdr.min()) < 0:
+        failures.append("HDR is not finite and non-negative")
+
+    # Analytic direct energy against its closed form: each admitted point
+    # light deposits energy * W * H / (2 pi) per frame.
+    lights = scene.lights
+    mask = rbt.analytic_light_mask(lights, -1)
+    _, vals = rbt._analytic_point_deposits(lights, mask, fields, float(width * height))
+    expect = (lights.energy.double() * mask.double()[:, None]).sum(0) * (
+        width * height / (2 * np.pi))
+    analytic_rel = float(((vals.double().sum(0) - expect) / expect).abs().max())
+    if int(mask.sum()) != 2 or analytic_rel > 1e-4:
+        failures.append(f"analytic direct energy off its closed form by "
+                        f"{analytic_rel} ({int(mask.sum())} lights)")
+
+    # The last frame's kernel resolve against the plain path on CPU copies
+    # of the same fields and sources.
+    cpu_fields = rbt.RotatedFields(**{k: v.cpu() for k, v in vars(fields).items()})
+    cpu_src = tuple(c.cpu() for c in src)
+    plain_raw = rbt.resolve_raw(cpu_fields, cpu_src, height, width)
+    raw = rbt.resolve_raw(fields, src, height, width).cpu()
+    resolve_err = float((raw - plain_raw).abs().max() / plain_raw.abs().max())
+    if resolve_err > 1e-4:
+        failures.append(f"kernel resolve vs plain: {resolve_err} of max > 1e-4")
+    del cpu_fields, cpu_src, plain_raw, raw
+
+    # The card's denoiser against the same weights on the CPU, both float32.
+    # Sums of up to 3*3*2048 products in other orders through 27 layers:
+    # held to 1e-3 of the output's largest magnitude.
+    with torch.device("meta"):
+        bare = LitboxDenoiserNet(cfg.unet_size, cfg.initial_features)
+    cpu_out = pipeline.denoise_hdr(bare, {k: v.cpu() for k, v in weights.items()},
+                                   hdr.cpu(), cfg.transform)
+    card_out = stages["denoise"](hdr).cpu()
+    denoise_rel = float((card_out - cpu_out).abs().max() / cpu_out.abs().max())
+    if not bool(torch.isfinite(card_out).all()) or denoise_rel > 1e-3:
+        failures.append(f"card denoise vs CPU: {denoise_rel} of max > 1e-3")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    trace_ms = stage_ms["trace"]
+    out = dict(sim_size=[width, height], rot_size=fields.size, n_bins=fields.n_bins,
+               n_photons=cfg.n_photons, max_bounces=cfg.max_bounces,
+               unet=dict(size=cfg.unet_size, features=cfg.initial_features,
+                         seed=UNET_SEED),
+               frames=FRAMES, ms_per_frame=(t1 - t0) / FRAMES * 1e3,
+               stage_ms=stage_ms, stage_peak_extra_bytes=stage_peak,
+               denoise_ms_tf32=denoise_tf32_ms,
+               unet_flop=unet_flop(cfg, 3, -(-height // 32) * 32, -(-width // 32) * 32),
+               photons_per_s_trace=cfg.n_photons / (trace_ms * 1e-3),
+               photons_per_s_frame=cfg.n_photons * FRAMES / (t1 - t0),
+               peak_memory_bytes=peak, launches=launches,
+               cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+               matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+               analytic_energy_rel_err=analytic_rel,
+               resolve_vs_plain_rel_err=resolve_err, resolve_tol=1e-4,
+               denoise_vs_cpu_rel_err=denoise_rel,
+               denoise_tol=1e-3, display_mean=float(display.mean()),
+               hdr_mean=float(hdr.mean()))
+    return out, (fields, src, height, width)
+
+
+def fused_resolve_phase(fields, src, height: int, width: int) -> dict:
+    """runs/prof_resolve6.py:60-79 on the card: the sources resolved through
+    the scan and K4 (then cropped) and through resolve_raw's quadrant-run
+    pipeline, with all bins and with 1/n_groups of them, both timed, held
+    together as tests/test_pallas_ops.py:113-131 holds them."""
+    d, s = fields.n_bins, fields.size
+    oy, ox = (s - height) // 2, (s - width) // 2
+
+    def fused(n_groups):
+        dep = attnscan.attenuation_scan_rows(fields.trans, *src, group=0,
+                                             n_groups=n_groups)
+        base = tuple(-i * 2.0 * np.pi / d for i in range(0, d, n_groups))
+        out = rotate.rotate_planar_sum_fused(dep, base, 0.0)
+        return out[:, oy:oy + height, ox:ox + width].movedim(0, -1)
+
+    def quadrant(n_groups):
+        return rbt.resolve_raw(fields, src, height, width, group=0, n_groups=n_groups)
+
+    reset_counts()
+    results = {}
+    for n_groups in (1, 4):
+        a, b = fused(n_groups), quadrant(n_groups)
+        results[n_groups] = dict(
+            mass_rel=float(abs(a.double().sum() / b.double().sum() - 1)),
+            mean_abs_diff_rel=float((a - b).abs().mean() / b.abs().mean()))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    failures = [f"kernels of the path were not launched: {m}"
+                for m in [unlaunched(launches, FUSED_KERNELS)] if m]
+    for n_groups, r in results.items():
+        if r["mass_rel"] > 1e-3 or r["mean_abs_diff_rel"] > 0.02:
+            failures.append(f"fused vs quadrant resolve at 1/{n_groups}: {r}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    for n_groups, r in results.items():
+        r.update(fused_ms=time_ms(lambda: fused(n_groups)),
+                 quadrant_ms=time_ms(lambda: quadrant(n_groups)))
+    return dict(launches=launches, mass_tol=1e-3, mean_abs_diff_tol=0.02,
+                all_bins=results[1], quarter_bins=results[4])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the card only")
@@ -309,12 +668,28 @@ def main() -> None:
     phase("frame", t0)
     print(json.dumps({"frame": frame}))
 
+    t0 = time.perf_counter()
+    pipe, last = pipeline_phase()
+    phase("pipeline", t0)
+    print(json.dumps({"pipeline": pipe}))
+
+    t0 = time.perf_counter()
+    fused = fused_resolve_phase(*last)
+    phase("fused_resolve", t0)
+    print(json.dumps({"fused_resolve": fused}))
+
+    # launches: the count on the path that drives each kernel, the pipeline
+    # for K1-K3 and the fused resolve for K4; every path's counts beside it.
+    paths = {"bench_frame": frame["launches"], "pipeline": pipe["launches"],
+             "fused_resolve": fused["launches"]}
     rows = []
-    for kname, (bench, realtime) in measured.items():
+    for kname, cases in measured.items():
+        path = "fused_resolve" if kname == "rotate_planar_sum_fused" else "pipeline"
         rows.append(dict(name=kname, route="cuda", **{
             k: KERNELS[kname][k] for k in ("source", "replaces")},
-            launches=frame["launches"][kname], tol=KERNELS[kname]["tol"],
-            **bench, realtime=realtime))
+            launches=paths[path][kname],
+            launches_by_path={p: c[kname] for p, c in paths.items()},
+            tol=KERNELS[kname]["tol"], **cases[0], cases=list(cases[1:])))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,8 @@ def sample_bilinear(field: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
 
 
 def sample_bilinear_uv(field: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
-    size = torch.tensor([field.shape[1], field.shape[0]], dtype=torch.float32,
-                        device=uv.device)
-    return sample_bilinear(field, uv * size)
+    # Scaled per component by Python numbers: a size tensor built on the
+    # device would be a host-to-device copy on every call.
+    xy = torch.stack([uv[..., 0] * float(field.shape[1]),
+                      uv[..., 1] * float(field.shape[0])], -1)
+    return sample_bilinear(field, xy)

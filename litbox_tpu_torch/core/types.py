@@ -30,6 +30,32 @@ LUMINANCE_WEIGHTS = (0.2126, 0.7152, 0.0722)
 
 
 @dataclasses.dataclass(frozen=True)
+class Realtime1080pProfile:
+    """The production 1080p configuration, pinned in one place (a copy of
+    the JAX package's profile).
+
+    The reference binds the simulation to the camera at quarter resolution
+    (BindSimulationToCamera.cs:6 resolutionScale = 1/4) and budgets 65,536
+    realtime rays (Simulation.cs:43). 262,144 direct + 32,768 bounce rays
+    per tracer-pair frame is 4.5x the reference's realtime ray budget.
+    """
+
+    sim_width: int = 480          # quarter-res 1080p, rounded to /16
+    sim_height: int = 272
+    out_width: int = 1920
+    out_height: int = 1088
+    photons: int = 262_144        # direct stratified rays per frame (pair total)
+    bounce_photons: int = 32_768  # MC bounce rays per frame (pair total)
+    n_bins: int = 128             # RBT angular bins
+    resolve_groups: int = 16      # group-interleaved display resolve (1/K cost)
+    bf16_display: bool = True     # denoiser + display stage precision
+    denoiser: str = "rgb"         # one UNet pass per frame (RGB variant)
+
+
+REALTIME_1080P = Realtime1080pProfile()
+
+
+@dataclasses.dataclass(frozen=True)
 class GBuffer:
     """Rasterized scene fields (reference: SimulationCamera.cs:7-19).
 

@@ -36,6 +36,7 @@ _SIGNATURES = {
     "litbox_attnscan_rows": [_P] * 7 + [_I] * 6 + [_P],
     "litbox_shear": [_P] * 3 + [_I] * 6 + [_P],
     "litbox_shear_reduce": [_P] * 3 + [_I] * 9 + [_P],
+    "litbox_rot3sum": [_P] * 4 + [_I] * 4 + [_P] * 2,
 }
 
 

@@ -15,11 +15,23 @@ the needed rows, 151 MB at the bench shape, 0.045 ms). The kernels compute
 the shift exactly for any coefficient, so the Pallas version's static
 `coef_bound` (which sized its roll loop) is not an argument here.
 
+`rotate_planar_sum_fused` replaces the Pallas kernel
+`litbox_tpu/ops/rotate.py::rotate_planar_sum_fused` (pallas_call at :458):
+the whole-image three-shear rotation summed per quadrant run, CUDA C++ in
+`csrc/rotfused.cu`. It is bound by bytes (one read of every input plane and
+one write of each run's partial: 654 MB at 3 x (128, 640, 640), 0.195 ms at
+3.35 TB/s). A 640^2 plane does not fit in a block's shared memory, so the
+kernel stages nothing: one thread per output texel evaluates the composite
+of the three shears as 8 taps of each image of its run and sums them in bin
+order, with no intermediate planes in device memory and no atomics.
+
 A CPU tensor takes the plain PyTorch version; a CUDA tensor takes the kernel
 or the call raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -149,8 +161,20 @@ def _quadrant_groups(angles) -> list:
     return groups
 
 
+def _residuals(base_angles: tuple, delta, dev) -> torch.Tensor:
+    """Per-bin shear residual angles base_res[d] + delta on `dev` (float32).
+    A float delta is added on the host, so no scalar is copied to the device
+    on its own."""
+    base_res = np.asarray(
+        [a - round(a / (np.pi / 2)) * (np.pi / 2) for a in base_angles],
+        np.float32)
+    if isinstance(delta, torch.Tensor):
+        return torch.from_numpy(base_res).to(dev) + delta.to(dev, torch.float32)
+    return torch.from_numpy(base_res + np.float32(delta)).to(dev)
+
+
 def rotate_planar_sum(channels: tuple, base_angles: tuple, delta,
-                      row_lo: int, row_hi: int) -> torch.Tensor:
+                      max_delta: float, row_lo: int, row_hi: int) -> torch.Tensor:
     """Planar-channel rotate-and-accumulate: the RBT display resolve path.
 
     channels: C tensors of (D, S, S), one per colour plane (the scan's
@@ -160,23 +184,20 @@ def rotate_planar_sum(channels: tuple, base_angles: tuple, delta,
 
     base_angles are static: the quadrant pre-rotation is resolved on the
     host into contiguous rot90 slices. `delta` (a float or a 0-d tensor, the
-    per-frame jitter phase * 2pi/D) folds into the shear residuals. The JAX
-    version also takes `max_delta` to bound its kernels' roll loops; the
-    kernels here need no bound, so the argument is gone.
+    per-frame jitter phase * 2pi/D, with |delta| <= max_delta) folds into
+    the shear residuals. The JAX version widens its kernels' static roll
+    bounds by max_delta; the kernels here need no bound, so max_delta only
+    checks a float delta (a tensor delta is not read back to the host).
     """
     c = len(channels)
     d, s, s2 = channels[0].shape
     if s != s2 or len(base_angles) != d:
         raise ValueError(f"channels {tuple(channels[0].shape)} vs {len(base_angles)} angles")
+    if not isinstance(delta, torch.Tensor) and abs(float(delta)) > max_delta:
+        raise ValueError(f"|delta| {abs(float(delta))} exceeds max_delta {max_delta}")
     dev = channels[0].device
     groups = _quadrant_groups(base_angles)
-    base_res = np.asarray(
-        [a - round(a / (np.pi / 2)) * (np.pi / 2) for a in base_angles],
-        np.float32)
-    if isinstance(delta, torch.Tensor):
-        residual = torch.from_numpy(base_res).to(dev) + delta.to(dev, torch.float32)
-    else:
-        residual = torch.from_numpy(base_res + np.float32(delta)).to(dev)
+    residual = _residuals(base_angles, delta, dev)
 
     pre = torch.cat([
         torch.rot90(ch[a:b], k, dims=(1, 2)) if k else ch[a:b]
@@ -190,3 +211,78 @@ def rotate_planar_sum(channels: tuple, base_angles: tuple, delta,
     flat = t.transpose(1, 2).contiguous()
     return shear_reduce(flat, alpha, row_div=1, elem_scale=1, n_texels=s,
                         row_lo=row_lo, row_hi=row_hi, groups=c)
+
+
+def _check_fused(channels: tuple, base_angles: tuple) -> tuple[int, int]:
+    d, s, s2 = channels[0].shape
+    if s != s2 or len(base_angles) != d or any(
+            ch.shape != channels[0].shape for ch in channels):
+        raise ValueError(f"channels {[tuple(ch.shape) for ch in channels]} "
+                         f"vs {len(base_angles)} angles")
+    return d, s
+
+
+def _fused_epilogue(parts: torch.Tensor, groups: list) -> torch.Tensor:
+    """(C, R, S, S) run partials -> (C, S, S): rot90 each run's partial by
+    its quadrant and sum (the JAX version's epilogue, outside its kernel)."""
+    total = parts[:, 0]
+    if groups[0][2]:
+        total = torch.rot90(total, groups[0][2], dims=(1, 2))
+    for r, (_, _, k) in enumerate(groups[1:], 1):
+        total = total + (torch.rot90(parts[:, r], k, dims=(1, 2)) if k else parts[:, r])
+    return total
+
+
+def rotate_planar_sum_fused_plain(channels: tuple, base_angles: tuple,
+                                  delta) -> torch.Tensor:
+    """`rotate_planar_sum_fused` in plain PyTorch: per channel, the three
+    `shear_plain` passes with explicit transposes, then each run's sum."""
+    d, s = _check_fused(channels, base_angles)
+    groups = _quadrant_groups(base_angles)
+    residual = _residuals(base_angles, delta, channels[0].device)
+    alpha = -torch.tan(residual / 2.0)
+    beta = torch.sin(residual)
+    parts = []
+    for ch in channels:
+        t = shear_plain(ch, alpha, 1, 1, s)
+        t = shear_plain(t.transpose(1, 2).contiguous(), beta, 1, 1, s)
+        t = shear_plain(t.transpose(1, 2).contiguous(), alpha, 1, 1, s)
+        parts.append(torch.stack([t[a:b].sum(0) for a, b, _ in groups]))
+    return _fused_epilogue(torch.stack(parts), groups)
+
+
+def rotate_planar_sum_fused(channels: tuple, base_angles: tuple,
+                            delta) -> torch.Tensor:
+    """Fused planar rotate-and-accumulate: sum_d R(base_angles[d] + delta)
+    applied to image d of each channel plane; returns (C, S, S).
+
+    The kernel computes per-quadrant-run partial sums of the three shears
+    WITHOUT the rot90 pre-rotation of `rotate_planar_sum`; the epilogue
+    rotates the R <= 5 run partials by their quadrant instead (rotations
+    about a common center commute, up to interpolation order). Any delta
+    works: the shifts have no static bound. base_angles are static; `delta`
+    is a float or a 0-d tensor.
+    """
+    if cuda_lib.on_cpu(*channels):
+        return rotate_planar_sum_fused_plain(channels, base_angles, delta)
+    cuda_lib.require_cuda_float32("rotate_planar_sum_fused", *channels)
+    d, s = _check_fused(channels, base_angles)
+    groups = _quadrant_groups(base_angles)
+    dev = channels[0].device
+    residual = _residuals(base_angles, delta, dev)
+    alpha = (-torch.tan(residual / 2.0)).contiguous()
+    beta = torch.sin(residual).contiguous()
+    c, n_runs = len(channels), len(groups)
+    out = torch.empty((c, n_runs, s, s), device=dev)
+    ptrs = (ctypes.c_void_p * c)(*[ch.data_ptr() for ch in channels])
+    starts = (ctypes.c_int * (n_runs + 1))(*[g[0] for g in groups], d)
+    code = cuda_lib.library().litbox_rot3sum(
+        ctypes.cast(ptrs, ctypes.c_void_p), alpha.data_ptr(), beta.data_ptr(),
+        out.data_ptr(), c, d, s, n_runs, ctypes.cast(starts, ctypes.c_void_p),
+        cuda_lib.stream_handle(dev))
+    cuda_lib.check(code, "rotate_planar_sum_fused")
+    rotate_planar_sum_fused.launches += 1
+    return _fused_epilogue(out, groups)
+
+
+rotate_planar_sum_fused.launches = 0

@@ -16,7 +16,12 @@ import numpy as np
 import torch
 
 from ..core.types import (
+    LIGHT_AMBIENT,
+    LIGHT_DIRECTIONAL,
+    LIGHT_FIELD,
+    LIGHT_LASER,
     LIGHT_POINT,
+    LIGHT_SPOT,
     SHAPE_ELLIPSE,
     SHAPE_RECT,
     SHAPE_SPRITE,
@@ -79,16 +84,53 @@ class SceneBuilder:
         self._lights: list[dict] = []
         self._shapes: list[dict] = []
         self._textures: list[np.ndarray] = []
+        self._field_textures: list[np.ndarray] = []
+
+    # ----- lights (emission semantics: ForwardMonteCarlo.compute:218-304) -----
+
+    def _add_light(self, kind, affine, color, intensity, bounces, outscatter=0.0, tex=None):
+        tex_index = 0
+        if tex is not None:
+            tex_index = len(self._field_textures) + 1
+            self._field_textures.append(self._prep_texture(tex, self.field_texture_size))
+        color = np.asarray(color, dtype=np.float32)[:3]
+        self._lights.append(dict(
+            kind=kind, affine=np.asarray(affine, np.float32),
+            energy=color * intensity * intensity,
+            bounces=bounces, emission_outscatter=outscatter, tex_index=tex_index,
+        ))
+        return self
 
     def add_point_light(self, position, radius, color=(1, 1, 1), intensity=1.0,
                         bounces=2, emission_outscatter=0.1):
-        color = np.asarray(color, dtype=np.float32)[:3]
-        self._lights.append(dict(
-            kind=LIGHT_POINT, affine=affine_2x3((radius, radius), 0.0, position),
-            energy=color * intensity * intensity, bounces=bounces,
-            emission_outscatter=emission_outscatter, tex_index=0,
-        ))
-        return self
+        aff = affine_2x3((radius, radius), 0.0, position)
+        return self._add_light(LIGHT_POINT, aff, color, intensity, bounces, emission_outscatter)
+
+    def add_spot_light(self, position, size, rotation=0.0, color=(1, 1, 1),
+                       intensity=1.0, bounces=2):
+        aff = affine_2x3(size, rotation, position)
+        return self._add_light(LIGHT_SPOT, aff, color, intensity, bounces)
+
+    def add_laser_light(self, position, size, rotation=0.0, color=(1, 1, 1),
+                        intensity=1.0, bounces=2):
+        aff = affine_2x3(size, rotation, position)
+        return self._add_light(LIGHT_LASER, aff, color, intensity, bounces)
+
+    def add_ambient_light(self, color=(1, 1, 1), intensity=1.0, bounces=2):
+        return self._add_light(LIGHT_AMBIENT, affine_2x3(), color, intensity, bounces)
+
+    def add_field_light(self, position, size, rotation=0.0, color=(1, 1, 1),
+                        intensity=1.0, bounces=2, emission_outscatter=0.1, texture=None):
+        aff = affine_2x3(size, rotation, position)
+        return self._add_light(LIGHT_FIELD, aff, color, intensity, bounces,
+                               emission_outscatter, tex=texture)
+
+    def add_directional_light(self, rotation=0.0, color=(1, 1, 1), intensity=1.0, bounces=2):
+        # Direction is the light's local -y in target space (ForwardMonteCarlo.cs:238).
+        aff = affine_2x3((1.0, 1.0), rotation, (0.0, 0.0))
+        return self._add_light(LIGHT_DIRECTIONAL, aff, color, intensity, bounces)
+
+    # ----- shapes -----
 
     def _prep_texture(self, tex, size) -> np.ndarray:
         tex = np.asarray(tex, dtype=np.float32)
@@ -185,7 +227,9 @@ class SceneBuilder:
         for i, t in enumerate(self._textures):
             textures[i + 1] = t
         fs = self.field_texture_size
-        field_textures = np.ones((1, fs, fs, 4), np.float32)
+        field_textures = np.ones((1 + len(self._field_textures), fs, fs, 4), np.float32)
+        for i, t in enumerate(self._field_textures):
+            field_textures[i + 1] = t
 
         return Scene(lights=lights, shapes=shapes, textures=put(textures),
                      field_textures=put(field_textures))

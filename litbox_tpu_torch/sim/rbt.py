@@ -9,13 +9,14 @@ direction is the +x axis, so a photon's free flight is work on ONE row of a
     O[x] = t[x] * O[x-1] + src[x] * sqrt(t[x])
 and rotates every bin back into the target frame and sums.
 
-This slice of the port runs bench.py's frame: Monte-Carlo direct lighting
-through the stamp histogram (`mc_direct=True, hist_direct=True,
-analytic_direct=False`), point lights only (`light_kinds=(1,)`), no BRDF
-materials and one tracer. Every other option raises NotImplementedError
-naming the phase still to be ported. Random numbers come from an explicit
-`torch.Generator` on the fields' device, so the draws differ from the JAX
-package's threefry stream and the two agree in distribution, not bit for bit.
+The trace runs every light kind with the JAX package's default options
+(analytic direct light for point lights, Monte-Carlo direct light for the
+rest, bounce chains emitted by `emit`, BRDF materials) and bench.py's
+stamp-histogram options. Two options still raise NotImplementedError naming
+themselves: `n_tracers>1` and `exact_collimated`. Random numbers come from
+an explicit `torch.Generator` on the fields' device, so the draws differ
+from the JAX package's threefry stream and the two agree in distribution,
+not bit for bit.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from ..core.types import LIGHT_POINT, GBuffer, affine_linear
 from ..ops.attnscan import attenuation_scan_rows
 from ..ops.resample import gather_bilinear
 from ..ops.rotate import rotate_planar_sum
-from .emission import (assign_photons_to_lights, effective_bounces,
+from .emission import (assign_photons_to_lights, effective_bounces, emit,
                        emit_point_stratified, take_per_light)
 from .materials import TWO_PI, scatter_materially, unit_from_angle
 
@@ -122,6 +123,65 @@ def zero_sources(fields: RotatedFields, n_tracers: int = 1) -> tuple:
                  for _ in range(3))
 
 
+def _light_radius(affine: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.abs(affine[..., 0, 0] * affine[..., 1, 1]
+                                - affine[..., 0, 1] * affine[..., 1, 0]))
+
+
+def analytic_light_mask(lights, override_bounces=None) -> torch.Tensor:
+    """(L,) True for lights whose wave-0 deposits are injected analytically."""
+    return ((lights.kind == LIGHT_POINT) & lights.active
+            & (_light_radius(lights.affine) < ANALYTIC_STAMP / 2 - 1)
+            & (effective_bounces(lights.bounces, override_bounces) != 0))
+
+
+def _analytic_point_deposits(lights, light_mask: torch.Tensor,
+                             fields: RotatedFields, pixel_count: float,
+                             n_tracers: int = 1):
+    """Noise-free direct-light deposit stream for point lights.
+
+    A point light emits uniformly over a disk with isotropic directions, so
+    its expected per-bin wave-0 source field is deterministic:
+    total_energy/(2 pi D) times the disk's coverage density at the light's
+    rotated center, laid on a STAMP x STAMP box of cells. Returns
+    (flat_idx, values), light-major then bin, row and column, the JAX
+    version's order. All lights are computed at once (the JAX version loops
+    over the light capacity); a disabled light's values are 0.
+    """
+    if n_tracers != 1:
+        raise NotImplementedError("n_tracers>1 not ported yet")
+    d_bins, s = fields.n_bins, fields.size
+    dev = fields.trans.device
+    stamp = ANALYTIC_STAMP
+
+    offs = torch.arange(stamp, dtype=torch.float32, device=dev) - stamp / 2 + 0.5
+    oy, ox = torch.meshgrid(offs, offs, indexing="ij")
+    rr = torch.sqrt(ox**2 + oy**2)
+    ang = (torch.arange(d_bins, dtype=torch.float32, device=dev)
+           + fields.phase) * (TWO_PI / d_bins)
+    cb, sb = torch.cos(ang), torch.sin(ang)
+
+    radius = _light_radius(lights.affine)                     # (L,)
+    cover = torch.clamp(radius[:, None, None] + 0.5 - rr, 0.0, 1.0)
+    cover = cover / torch.clamp(cover.sum((1, 2)), min=1e-12)[:, None, None]
+    # Total emitted energy matches emit() with interval=1:
+    # per-photon E = energy*(W*H)/(rays*2pi), times rays, over D bins.
+    per_bin = lights.energy * (pixel_count / (TWO_PI * d_bins))  # (L, 3)
+
+    rel = lights.affine[:, :, 2] - fields.center              # (L, 2)
+    cx = cb[None] * rel[:, 0:1] + sb[None] * rel[:, 1:2] + s / 2.0   # (L, D)
+    cy = -sb[None] * rel[:, 0:1] + cb[None] * rel[:, 1:2] + s / 2.0
+    iy = (cy[:, :, None, None] + oy).long().clamp(0, s - 1)    # (L, D, st, st)
+    ix = (cx[:, :, None, None] + ox).long().clamp(0, s - 1)
+    bins = torch.arange(d_bins, device=dev)[None, :, None, None]
+    flat = (bins * s + iy) * s + ix
+
+    enabled = torch.where(light_mask, 1.0, 0.0)[:, None, None, None, None]
+    vals = (enabled * cover[:, None, :, :, None]
+            * per_bin[:, None, None, None, :]).expand(-1, d_bins, -1, -1, -1)
+    return flat.reshape(-1), vals.reshape(-1, 3)
+
+
 def _rotated_coords(fields: RotatedFields, pos: torch.Tensor,
                     cb: torch.Tensor, sb: torch.Tensor):
     """Target-frame position -> (xr, yr) in the bin frame of angle (cb, sb)."""
@@ -187,13 +247,8 @@ def _flight_rows(fields: RotatedFields, pos: torch.Tensor, direction: torch.Tens
                  live: torch.Tensor, u_tp: torch.Tensor):
     """Free flight for a flat photon batch with arbitrary directions: each
     photon's bin comes from its direction, its row from its rotated y."""
-    d_bins, s = fields.n_bins, fields.size
-    bin_width = 2 * math.pi / d_bins
-    theta = torch.atan2(direction[:, 1], direction[:, 0])
-    b = torch.round(theta / bin_width - fields.phase).long() % d_bins
-    ang = (b.float() + fields.phase) * bin_width
-    cb, sb = torch.cos(ang), torch.sin(ang)
-
+    s = fields.size
+    b, cb, sb = _direction_bins(fields, direction)
     xr, yr = _rotated_coords(fields, pos, cb, sb)
     iy = torch.floor(yr).long().clamp(0, s - 1)
     hit_x, t_esc, found = _flight_gathered(fields, b * s + iy, xr, u_tp, live)
@@ -306,6 +361,55 @@ def _mc_point_hist_deposits(lights, fields: RotatedFields, n_photons: int,
     return flat.reshape(-1), vals.reshape(-1, 3), n_emitted
 
 
+def _direction_bins(fields: RotatedFields, direction: torch.Tensor):
+    """Each photon's direction bin b and the bin's (cos, sin)."""
+    d_bins = fields.n_bins
+    bin_width = TWO_PI / d_bins
+    theta = torch.atan2(direction[:, 1], direction[:, 0])
+    b = torch.round(theta / bin_width - fields.phase).long() % d_bins
+    ang = (b.float() + fields.phase) * bin_width
+    return b, torch.cos(ang), torch.sin(ang)
+
+
+def _deposit_cells(fields: RotatedFields, pos: torch.Tensor,
+                   direction: torch.Tensor) -> torch.Tensor:
+    """Flat (bin, row, column) source cell of each photon at `pos`, in the
+    frame of its direction's bin."""
+    s = fields.size
+    b, cb, sb = _direction_bins(fields, direction)
+    xr, yr = _rotated_coords(fields, pos, cb, sb)
+    ix = torch.floor(xr).long().clamp(0, s - 1)
+    iy = torch.floor(yr).long().clamp(0, s - 1)
+    return (b * s + iy) * s + ix
+
+
+def _mc_scatter_deposits(lights, field_textures, fields: RotatedFields,
+                         gbuffer: GBuffer, n_photons: int,
+                         generator: torch.Generator, override_bounces,
+                         light_kinds, exclude_analytic: bool,
+                         n_tracers: int = 1):
+    """Generic Monte-Carlo direct deposit stream: emit n photons across all
+    lights; their energy lands at their rotated emission cells (the
+    counterpart of WritePhoton's InterlockedAdd,
+    ForwardMonteCarlo.compute:68-86). Returns (flat_idx, values).
+
+    exclude_analytic zeroes the photons of lights that the analytic phase
+    covers, so their direct light is not counted twice."""
+    if n_tracers != 1:
+        raise NotImplementedError("n_tracers>1 not ported yet")
+    height, width = gbuffer.transmissibility.shape
+    l_idx, rays_per_light = assign_photons_to_lights(lights, n_photons)
+    pos, direction, energy, bounces = emit(
+        lights, field_textures, l_idx, rays_per_light, generator,
+        (height, width), 1.0, override_bounces, active_kinds=light_kinds)
+
+    inject = bounces > 0
+    if exclude_analytic:
+        inject &= ~take_per_light(analytic_light_mask(lights, override_bounces), l_idx)
+    flat = _deposit_cells(fields, pos, direction)
+    return flat, torch.where(inject[:, None], energy, 0.0)
+
+
 def _bounce_chain_deposits(fields: RotatedFields, gbuffer: GBuffer,
                            lights, field_textures, brdf_lut,
                            generator: torch.Generator, k_photons: int,
@@ -317,39 +421,45 @@ def _bounce_chain_deposits(fields: RotatedFields, gbuffer: GBuffer,
     The chains are the Russian-roulette continuation of the frame's photon
     batch: a fresh emission of k photons is identical in distribution to a
     uniform k-subset of the n direct photons, and the emission normalizes
-    per-photon energy by k, which IS the n/k roulette rescale. Wave 0 is
-    emitted bin-stratified (emit_point_stratified) and flown per bin; later
-    waves fly with arbitrary directions. The material lookup is a direct
-    index (the JAX version's non-TPU branch).
+    per-photon energy by k, which IS the n/k roulette rescale. With
+    `stratified`, wave 0 is emitted bin-stratified (emit_point_stratified,
+    point lights only) and flown per bin; otherwise `emit` emits every light
+    kind and every wave flies with arbitrary directions. The material lookup
+    is a direct index (the JAX version's non-TPU branch).
     """
-    if not stratified:
-        raise NotImplementedError("emit (unstratified bounce emission) not ported yet")
     if n_tracers != 1:
         raise NotImplementedError("n_tracers>1 not ported yet")
     height, width = gbuffer.transmissibility.shape
-    d_bins, s = fields.n_bins, fields.size
+    d_bins = fields.n_bins
     dev = fields.trans.device
-    bin_width = 2 * math.pi / d_bins
 
     material = torch.cat([gbuffer.normal, gbuffer.albedo[..., :3]], -1)
 
-    cap = -(-k_photons // d_bins)
-    l_of_slot, slots = assign_photons_to_lights(lights, cap)
-    pos, direction, energy, bounces = emit_point_stratified(
-        lights, l_of_slot, slots, d_bins, fields.phase, generator,
-        (height, width), 1.0, override_bounces)
-    u_tp = torch.rand(bounces.shape, generator=generator, device=dev)
-    wave0 = _flight_stratified(fields, pos, bounces > 0, u_tp)
-    m = d_bins * cap
-    pos, direction, energy, bounces = (
-        a.reshape((m,) + a.shape[2:]) for a in (pos, direction, energy, bounces))
-    wave0 = tuple(a.reshape((m,) + a.shape[2:]) for a in wave0)
+    wave0 = None
+    if stratified:
+        cap = -(-k_photons // d_bins)
+        l_of_slot, slots = assign_photons_to_lights(lights, cap)
+        pos, direction, energy, bounces = emit_point_stratified(
+            lights, l_of_slot, slots, d_bins, fields.phase, generator,
+            (height, width), 1.0, override_bounces)
+        u_tp = torch.rand(bounces.shape, generator=generator, device=dev)
+        wave0 = _flight_stratified(fields, pos, bounces > 0, u_tp)
+        m = d_bins * cap
+        pos, direction, energy, bounces = (
+            a.reshape((m,) + a.shape[2:]) for a in (pos, direction, energy, bounces))
+        wave0 = tuple(a.reshape((m,) + a.shape[2:]) for a in wave0)
+    else:
+        l_idx, rays_per_light = assign_photons_to_lights(lights, k_photons)
+        pos, direction, energy, bounces = emit(
+            lights, field_textures, l_idx, rays_per_light, generator,
+            (height, width), 1.0, override_bounces, active_kinds=light_kinds)
+    m = pos.shape[0]
 
     dead = torch.zeros(m, dtype=torch.bool, device=dev)
     all_flat, all_vals = [], []
     for wave in range(max_bounces - 1):
         live = (~dead) & (wave < bounces)
-        if wave == 0:
+        if wave == 0 and wave0 is not None:
             p_hit, t_esc, found = wave0
         else:
             u_tp = torch.rand((m,), generator=generator, device=dev)
@@ -376,13 +486,7 @@ def _bounce_chain_deposits(fields: RotatedFields, gbuffer: GBuffer,
 
         # --- record the bounce deposit at the new position ---
         live_next = (~dead) & (wave + 1 < bounces)
-        theta = torch.atan2(direction[:, 1], direction[:, 0])
-        b = torch.round(theta / bin_width - fields.phase).long() % d_bins
-        ang = (b.float() + fields.phase) * bin_width
-        xr, yr = _rotated_coords(fields, pos, torch.cos(ang), torch.sin(ang))
-        ix = torch.floor(xr).long().clamp(0, s - 1)
-        iy = torch.floor(yr).long().clamp(0, s - 1)
-        all_flat.append((b * s + iy) * s + ix)
+        all_flat.append(_deposit_cells(fields, pos, direction))
         all_vals.append(torch.where(live_next[:, None], energy, 0.0))
     if not all_flat:
         return (torch.zeros(0, dtype=torch.long, device=dev),
@@ -399,14 +503,21 @@ def rbt_trace_frame(fields: RotatedFields, src_accum: tuple, gbuffer: GBuffer,
                     hist_direct: bool = False,
                     exact_collimated: bool = False,
                     n_tracers: int = 1):
-    """Trace one frame's photons; accumulate sources into src_accum IN PLACE.
+    """Trace one frame's photons; accumulate sources into src_accum IN PLACE
+    (the counterpart of the JAX version's donated buffer).
 
     Returns (src_accum, photons_emitted); src_accum is the per-channel
     source buffer tuple (3 x (n_tracers*D, S, S)). The lightmap itself is
     produced by resolve_raw. The frame is two decoupled estimator phases:
-    DIRECT (all n photons' wave-0 deposits, through the stamp histogram)
-    and BOUNCE (k = bounce_photons Russian-roulette chains that fly, scatter
-    materially and inject wave >= 1 deposits).
+
+      1. DIRECT: all n photons' wave-0 deposits. analytic_direct injects
+         the exact expectation of point lights that analytic_light_mask
+         admits; mc_direct samples per-photon deposits, through the stamp
+         histogram (hist_direct, all-point scenes) or the generic scatter
+         (_mc_scatter_deposits, which skips the analytic lights).
+      2. BOUNCE: k = bounce_photons chains (Russian roulette, energy
+         renormalized by emission; all n when 0) fly, scatter materially
+         and inject wave >= 1 deposits.
     """
     flat, vals, n_emitted = rbt_frame_deposits(
         fields, gbuffer, lights, field_textures, brdf_lut, generator, n_photons,
@@ -434,23 +545,30 @@ def rbt_frame_deposits(fields: RotatedFields, gbuffer: GBuffer,
     stream (flat_idx, values, photons_emitted), flat_idx indexing the
     flattened (n_tracers*D*S*S) source planes; (None, None, n) when no
     phase deposits."""
-    if analytic_direct:
-        raise NotImplementedError("_analytic_point_deposits not ported yet")
     if exact_collimated:
-        raise NotImplementedError("collimated lights (_laser_direct_raw) not ported yet")
+        raise NotImplementedError("exact_collimated (_laser_direct_raw) not ported yet")
     if n_tracers != 1:
         raise NotImplementedError("n_tracers>1 not ported yet")
-    if light_kinds != (LIGHT_POINT,):
-        raise NotImplementedError("light kinds other than point lights (emit) not ported yet")
-    if mc_direct and not hist_direct:
-        raise NotImplementedError("_mc_scatter_deposits not ported yet")
     height, width = gbuffer.transmissibility.shape
+    pixel_count = float(width * height)
     n_emitted = n_photons
     all_flat, all_vals = [], []
+    if analytic_direct:
+        f, v = _analytic_point_deposits(
+            lights, analytic_light_mask(lights, override_bounces), fields,
+            pixel_count, n_tracers=n_tracers)
+        all_flat.append(f)
+        all_vals.append(v)
     if mc_direct:
-        f, v, n_emitted = _mc_point_hist_deposits(
-            lights, fields, n_photons, generator, override_bounces,
-            float(width * height), n_tracers=n_tracers)
+        if hist_direct:
+            f, v, n_emitted = _mc_point_hist_deposits(
+                lights, fields, n_photons, generator, override_bounces,
+                pixel_count, n_tracers=n_tracers)
+        else:
+            f, v = _mc_scatter_deposits(
+                lights, field_textures, fields, gbuffer, n_photons, generator,
+                override_bounces, light_kinds, exclude_analytic=analytic_direct,
+                n_tracers=n_tracers)
         all_flat.append(f)
         all_vals.append(v)
     if max_bounces >= 2:
@@ -492,10 +610,11 @@ def resolve_raw(fields: RotatedFields, src_accum: tuple, height: int, width: int
     oy = (s - height) // 2
     ox = (s - width) // 2
     base = tuple(-i * 2.0 * np.pi / d for i in bins)
-    delta = (-fields.phase * (2.0 * np.pi / d)) if traced_phase else 0.0
+    max_delta = 2.0 * np.pi / d
+    delta = (-fields.phase * max_delta) if traced_phase else 0.0
     lo = (oy // 64) * 64
     hi = min(-(-(oy + height) // 64) * 64, s)
-    out = rotate_planar_sum(dep, base, delta, lo, hi)
+    out = rotate_planar_sum(dep, base, delta, max_delta, lo, hi)
     out = out[:, oy - lo:oy - lo + height, ox:ox + width]
     return out.movedim(0, -1).contiguous()
 

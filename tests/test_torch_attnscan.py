@@ -14,6 +14,17 @@ from litbox_tpu_torch.ops import attnscan
 D, S = 8, 128
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's CPU work: the suite runs test files
+    in parallel workers, and torch's thread pool spin-waits when they share
+    the cores (a test took 11x as long)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed: int):
     rng = np.random.default_rng(seed)
     t = rng.uniform(0.3, 1.0, (D, S, S)).astype(np.float32)

@@ -75,6 +75,23 @@ def test_shear_reduce_kernel_matches_plain(dev, groups, row_lo, row_hi):
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("s,d,delta", [(128, 8, 0.0), (96, 12, -0.2), (64, 16, 0.3)])
+def test_rotate_planar_sum_fused_kernel_matches_plain(dev, s, d, delta):
+    """K4 against its plain version, bins over all four quadrants (5 runs),
+    with a float and a tensor delta."""
+    base = tuple(-i * 2 * np.pi / d for i in range(d))
+    chans = tuple(_rand(dev, 11 + c, (d, s, s)) for c in range(3))
+    for dl in (delta, torch.tensor(delta, device=dev)):
+        before = rotate.rotate_planar_sum_fused.launches
+        got = rotate.rotate_planar_sum_fused(chans, base, dl)
+        torch.cuda.synchronize()
+        assert rotate.rotate_planar_sum_fused.launches == before + 1
+        ref = rotate.rotate_planar_sum_fused_plain(chans, base, dl)
+        assert got.shape == ref.shape == (3, s, s)
+        torch.testing.assert_close(got, ref, atol=2e-5 * float(ref.abs().max()),
+                                   rtol=0)
+
+
 def test_wrappers_raise_instead_of_falling_back(dev):
     img = _rand(dev, 8, (4, 16, 16))
     coef = torch.zeros(4, device=dev)
@@ -84,6 +101,8 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         rotate.shear(img.double(), coef.double(), 1, 1, 16)
     with pytest.raises(ValueError):
         rotate.shear(img, coef.cpu(), 1, 1, 16)             # mixed devices
+    with pytest.raises(ValueError):                         # not contiguous
+        rotate.rotate_planar_sum_fused((img.transpose(1, 2),) * 3, (0.0,) * 4, 0.0)
 
 
 def test_resolve_on_card_matches_cpu(dev):

@@ -40,6 +40,17 @@ BENCH_OPTS = dict(max_bounces=2, bounce_photons=BOUNCE_PHOTONS, mc_direct=True,
                   hist_direct=True)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's CPU work: the suite runs test files
+    in parallel workers, and torch's thread pool spin-waits when they share
+    the cores (a test took 11x as long)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(obj):
     """A JAX dataclass or tuple -> the dict/tuple of numpy arrays that
     convert.from_numpy takes."""
@@ -314,15 +325,15 @@ def test_frame_end_to_end_mean_energy(jax_setup, jax_sources, port_setup):
 
 
 @pytest.mark.parametrize("opts,phase", [
-    (dict(), "_analytic_point_deposits"),
-    (dict(analytic_direct=False, light_kinds=(1,)), "_mc_scatter_deposits"),
+    (dict(n_tracers=2), "n_tracers>1"),
+    (dict(exact_collimated=True), "collimated"),
     (dict(analytic_direct=False, light_kinds=(1,), hist_direct=True,
           n_tracers=2), "n_tracers>1"),
-    (dict(analytic_direct=False, light_kinds=None, hist_direct=True), "emit"),
+    (dict(mc_direct=False, max_bounces=2, n_tracers=2), "n_tracers>1"),
     (dict(analytic_direct=False, light_kinds=(1,), hist_direct=True,
           exact_collimated=True), "collimated"),
-    (dict(analytic_direct=False, light_kinds=(1,), hist_direct=True,
-          max_bounces=2), "sample_brdf_fast"),
+    (dict(analytic_direct=True, mc_direct=False, max_bounces=1, n_tracers=2),
+     "n_tracers>1"),
 ])
 def test_unported_options_raise(port_setup, opts, phase):
     scene, gb, fields, brdf = port_setup
@@ -330,3 +341,22 @@ def test_unported_options_raise(port_setup, opts, phase):
         rbt.rbt_trace_frame(fields, rbt.zero_sources(fields), gb, scene.lights,
                             scene.field_textures, brdf,
                             torch.Generator().manual_seed(0), 1024, -1, **opts)
+
+
+@pytest.mark.parametrize("opts", [
+    dict(),
+    dict(analytic_direct=False, light_kinds=(1,)),
+    dict(analytic_direct=False, light_kinds=None, hist_direct=True),
+    dict(analytic_direct=False, light_kinds=(1,), hist_direct=True, max_bounces=2),
+])
+def test_ported_options_run(port_setup, opts):
+    """The options that raised in the first slice (the JAX defaults, the
+    generic MC scatter, the stamp histogram with every emitter selected, and
+    BRDF bounces) now trace: finite, non-negative sources with energy."""
+    scene, gb, fields, brdf = port_setup
+    src, n = rbt.rbt_trace_frame(fields, rbt.zero_sources(fields), gb, scene.lights,
+                                 scene.field_textures, brdf,
+                                 torch.Generator().manual_seed(0), 1024, -1, **opts)
+    total = sum(float(c.double().sum()) for c in src)
+    assert n >= 1024 and total > 0
+    assert all(bool(torch.isfinite(c).all()) and float(c.min()) >= 0 for c in src)

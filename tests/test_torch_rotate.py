@@ -17,6 +17,17 @@ ALPHA_BOUND = jrot.ALPHA_BOUND
 BETA_BOUND = jrot.BETA_BOUND
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's CPU work: the suite runs test files
+    in parallel workers, and torch's thread pool spin-waits when they share
+    the cores (a test took 11x as long)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rand(seed, shape, lo=0.0, hi=1.0):
     return np.random.default_rng(seed).uniform(lo, hi, shape).astype(np.float32)
 
@@ -84,7 +95,8 @@ def test_rotate_planar_sum_matches_pallas(delta_frac):
     ref = jrot.rotate_planar_sum(tuple(map(jnp.asarray, chans)), base,
                                  jnp.float32(delta), max_delta, 8, 56)
     got = trot.rotate_planar_sum(tuple(map(torch.from_numpy, chans)), base,
-                                 torch.tensor(delta, dtype=torch.float32), 8, 56)
+                                 torch.tensor(delta, dtype=torch.float32),
+                                 max_delta, 8, 56)
     assert got.shape == (3, 48, S)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
 
@@ -99,3 +111,58 @@ def test_shear_reduce_rejects_bad_arguments(kwargs):
     with pytest.raises(ValueError):
         trot.shear_reduce(torch.zeros(D, S, S), torch.zeros(D), **args)
 
+
+
+def test_rotate_planar_sum_takes_jax_positional_arguments():
+    """(channels, base_angles, delta, max_delta, row_lo, row_hi) by position,
+    as the JAX function takes them, gives the JAX result; a float delta
+    beyond max_delta raises."""
+    d = D
+    base = tuple(-i * 2 * np.pi / d for i in range(d))
+    max_delta = 2 * np.pi / d
+    chans = [_rand(20 + c, (d, S, S)) for c in range(3)]
+    args = (0.4 * max_delta, max_delta, 16, 48)
+    ref = jrot.rotate_planar_sum(tuple(map(jnp.asarray, chans)), base, *args)
+    got = trot.rotate_planar_sum(tuple(map(torch.from_numpy, chans)), base, *args)
+    assert got.shape == (3, 32, S)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="max_delta"):
+        trot.rotate_planar_sum(tuple(map(torch.from_numpy, chans)), base,
+                               1.5 * max_delta, max_delta, 16, 48)
+
+
+@pytest.mark.parametrize("delta_frac", [0.0, -0.3])
+def test_rotate_planar_sum_fused_matches_pallas(delta_frac):
+    """The fused whole-image rotate-and-sum against the JAX Pallas kernel in
+    interpret mode (s=128, d=8): the same shears in the same order, so
+    float32 rounding only."""
+    s, d = 128, 8
+    base = tuple(-i * 2 * np.pi / d for i in range(d))
+    delta = delta_frac * 2 * np.pi / d
+    chans = [_rand(30 + c, (d, s, s)) for c in range(3)]
+    ref = np.asarray(jrot.rotate_planar_sum_fused(tuple(map(jnp.asarray, chans)),
+                                                  base, delta))
+    got = trot.rotate_planar_sum_fused(tuple(map(torch.from_numpy, chans)), base,
+                                       torch.tensor(delta, dtype=torch.float32))
+    assert got.shape == (3, s, s)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+    plain = trot.rotate_planar_sum_fused_plain(tuple(map(torch.from_numpy, chans)),
+                                               base, delta)
+    np.testing.assert_allclose(plain.numpy(), ref, atol=1e-5, rtol=0)
+
+
+def test_rotate_planar_sum_fused_conserves_mass_like_pipeline():
+    """Fused against the planar pipeline on smooth fields (the JAX package's
+    test_rotate_planar_sum_fused_matches_pipeline): total mass within 1e-3,
+    mean absolute difference below 2% of the mean."""
+    s, d = 128, 8
+    img = _rand(40, (3, d, s, s))
+    for _ in range(4):
+        img = (np.roll(img, 1, 2) + np.roll(img, -1, 2) + np.roll(img, 1, 3)
+               + np.roll(img, -1, 3) + img) / 5
+    chans = tuple(torch.from_numpy(c) for c in img)
+    base = tuple(-i * 2 * np.pi / d for i in range(d))
+    pipe = trot.rotate_planar_sum(chans, base, 0.0, 2 * np.pi / d, 16, 112).numpy()
+    fused = trot.rotate_planar_sum_fused(chans, base, 0.0)[:, 16:112].numpy()
+    assert abs(fused.sum() / pipe.sum() - 1) < 1e-3
+    assert np.abs(fused - pipe).mean() < 0.02 * pipe.mean()
