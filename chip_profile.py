@@ -1,5 +1,5 @@
-"""Where the time of bench.py's frame and of the make_frame_fn pipeline goes
-on the card (litbox_tpu_torch).
+"""Where the time of bench.py's frame, of the make_frame_fn pipeline and of
+the shipped realtime frame goes on the card (litbox_tpu_torch).
 
     python3 chip_profile.py [trace.json]
 
@@ -16,6 +16,10 @@ D=128, 2,000,000 photons, 524,288 bounce chains). Prints three JSON lines:
 - "pipeline_profile": the same for chip_smoke.py's make_frame_fn pipeline
   (480x272, S=640, D=128, 1,000,000 photons, float32 UNet of size 5): three
   trace stages alone, then two whole frames.
+- "production_profile": the same for chip_smoke.py's shipped frame
+  (engine/realtime.py on REALTIME_1080P, bf16 net of the shipped shape):
+  8 frames after 9 warm ones (one flush and one calibration among them),
+  then 8 single-pass displays alone.
 
 Needs one CUDA device; imports torch, numpy and litbox_tpu_torch only.
 """
@@ -31,6 +35,9 @@ import torch
 
 import chip_smoke as smoke
 from litbox_tpu_torch.core import luts
+from litbox_tpu_torch.engine import realtime
+from litbox_tpu_torch.engine.pipeline import denoise_hdr
+from litbox_tpu_torch.nn.unet import LitboxDenoiserNet
 from litbox_tpu_torch.sim import rbt
 from litbox_tpu_torch.sim.oracle import to_hdr
 
@@ -108,6 +115,33 @@ def main() -> None:
     print(json.dumps({"pipeline_profile": [
         profile_window("3 pipeline trace stages", pipeline_traces),
         profile_window("2 pipeline frames", pipeline_frames)]}))
+    del pfields, psrc, frame
+    torch.cuda.empty_cache()
+
+    # The shipped frame: 8 frames, then its single-pass display alone on the
+    # last frame's pair mean.
+    _, rgb, _, weights32, make = smoke.make_production()
+    weights = realtime.display_weights(weights32)
+    init_state, step = make(weights)
+    state = init_state()
+    rgen = torch.Generator(device="cuda").manual_seed(7)
+    for _ in range(9):
+        step(state, rgen)
+    with torch.device("meta"):
+        net = LitboxDenoiserNet(**realtime.SHIPPED_NET)
+    hdr = to_hdr(state.cache.sum(1).mean(0), float(state.frame), rgb)
+
+    def production_frames():
+        for _ in range(8):
+            step(state, rgen)
+
+    def displays():
+        for _ in range(8):
+            denoise_hdr(net, weights, hdr, realtime.SHIPPED_TRANSFORM)
+
+    print(json.dumps({"production_profile": [
+        profile_window("8 shipped frames", production_frames),
+        profile_window("8 single-pass displays", displays)]}))
 
 
 def profile_window(label: str, body, trace_path: str | None = None) -> dict:

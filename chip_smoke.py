@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from litbox_tpu_torch/csrc (one nvcc call)
-and runs four phases, each printed with its wall seconds:
+and runs six phases, each printed with its wall seconds:
 
 - kernels: each kernel (K1 scan, K2 shear, K3 shear_reduce, K4 fused
   rotate-and-sum) held against its plain PyTorch version at the shapes of
@@ -22,12 +22,31 @@ and runs four phases, each printed with its wall seconds:
   denoiser against the CPU.
 - fused_resolve: the pipeline's last sources resolved through K1 + K4 and
   through resolve_raw (K1 -> K2 -> K3), with all bins and with 1/4 of them.
+- production: the shipped realtime frame (engine.realtime, the JAX package's
+  runs/bench_1080p.py --pair-fast on REALTIME_1080P) at 480x272, S=640,
+  D=128 on bench_1080p.py's scene, with the shipped net's shape (RGB, size
+  4, 16 features) and bf16 weights from a fixed seed: 1 warm frame, 32
+  timed frames (ms per displayed frame, photons/s, peak memory), 16 frames
+  with CUDA events between the stages, 8 frames beside a float32 display of
+  the same frames (the bf16 display held within BF16_DISPLAY_TOL of it),
+  8 frames under torch's sync debug mode (none may make the host wait),
+  resolve_raw against K1 + K4 at the group shape, and the frame's checks.
+- rotfused_split: the four variants of K4's cost split (V1-V4,
+  litbox_tpu_torch/prof/rotfused.py, runs/prof_rotfused.py's kernels) and
+  K4 itself, timed at (384, 640, 640) and at the frame's group shape
+  (24, 640, 640) beside their byte bounds, then each held against its
+  plain version.
 
 Every kernel counter is set to 0 just before a path is driven and read just
 after; a kernel of the path that was not launched, or any failed check,
 raises, so the exit code is not 0. The lines before the last carry one JSON
 line per phase, the kernels line and the card's name and power limit; the
 last line is the device record.
+
+With --resolve-f64, the pipeline phase also measures how far its last
+resolve, the card's and the plain one, and the scan alone lie from float64
+(the `resolve_vs_float64` entry of its line, read by no check); by default
+that entry is null.
 
 Needs one CUDA device, nvcc and nvidia-smi; imports torch, numpy and
 litbox_tpu_torch only.
@@ -36,9 +55,13 @@ litbox_tpu_torch only.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
+import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -46,9 +69,10 @@ import torch.nn.functional as F
 
 from litbox_tpu_torch.core import luts
 from litbox_tpu_torch.core.types import REALTIME_1080P
-from litbox_tpu_torch.engine import pipeline
+from litbox_tpu_torch.engine import pipeline, realtime
 from litbox_tpu_torch.nn.unet import LitboxDenoiserNet
 from litbox_tpu_torch.ops import attnscan, cuda_lib, rotate
+from litbox_tpu_torch.prof import rotfused
 from litbox_tpu_torch.scene import SceneBuilder, rasterize
 from litbox_tpu_torch.sim import rbt
 from litbox_tpu_torch.sim.oracle import to_hdr
@@ -80,13 +104,24 @@ KERNELS = {
                                     replaces="litbox_tpu/ops/rotate.py:458",
                                     tol=2e-5),
 }
+# K4's cost split: up to 384 images summed in order in the kernels, in
+# PyTorch's order in the plain versions.
+SPLIT = ("copy_accum", "transpose2_accum", "shear1_accum", "shear3_accum")
+for _name in SPLIT:
+    KERNELS[_name] = dict(source="litbox_tpu_torch/csrc/prof_rotfused.cu",
+                          replaces="runs/prof_rotfused.py:38", tol=2e-5)
 COUNTERS = {"attenuation_scan_rows": attnscan.attenuation_scan_rows,
             "shear": rotate.shear, "shear_reduce": rotate.shear_reduce,
-            "rotate_planar_sum_fused": rotate.rotate_planar_sum_fused}
+            "rotate_planar_sum_fused": rotate.rotate_planar_sum_fused,
+            **{name: getattr(rotfused, name) for name in SPLIT}}
 # Operations per image and output texel of the fused rotation: 7 two-tap
 # lerps (3 each) and 7 shift evaluations (4 each), csrc/rotfused.cu.
 ROT3_OPS = 49
 UNET_SEED = 5
+# The card's resolve against the plain resolve on CPU copies, relative to
+# its maximum: both are float32 roundings of one sum (1.25e-6 at S=640 on
+# the pipeline's sources, most of it K1's chunked scan, PERF.md).
+RESOLVE_TOL = 1e-5
 
 
 # The kernels each path must launch: resolve_raw runs K1 -> K2 -> K3, the
@@ -104,6 +139,31 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
+def host_syncs(fn) -> list:
+    """Where fn() makes the host wait for the card: torch's sync debug mode
+    warns at each synchronizing call; returns, for each, the innermost line
+    of the port (or of this script) on the stack, as file:line."""
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if "litbox_tpu_torch" in f.filename or f.filename.endswith("chip_smoke.py")]
+        where = ours[-1] if ours else traceback.FrameSummary(filename, lineno, "")
+        sites.append(f"{os.path.relpath(where.filename)}:{where.lineno}")
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
 def unlaunched(launches: dict, names) -> list:
     return [n for n in names if launches[n] == 0]
 
@@ -113,15 +173,45 @@ def phase(name: str, t0: float, **info) -> None:
           + " ".join(f"{k}={v}" for k, v in info.items()), flush=True)
 
 
-def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
-    """Median of `reps` CUDA-event timings of fn() after `warmup` calls.
-    Every input here is larger than the 50 MB L2 cache, so each call reads
-    from device memory."""
+_CYCLES_PER_MS = None
+
+
+def _sleep_ms(ms: float) -> None:
+    """Queue a spin of about `ms` milliseconds on the current stream
+    (torch.cuda._sleep counts clock cycles; the rate is measured once)."""
+    global _CYCLES_PER_MS
+    if _CYCLES_PER_MS is None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(1 << 24)
+        end.record()
+        end.synchronize()
+        _CYCLES_PER_MS = (1 << 24) / start.elapsed_time(end)
+    torch.cuda._sleep(int(ms * _CYCLES_PER_MS))
+
+
+def time_ms(fn, reps: int = 7, warmup: int = 2, cold: bool = False) -> float:
+    """Median of `reps` CUDA-event timings of fn() after `warmup` calls:
+    device time only. Before each timed call the stream is held busy for
+    twice fn's host time (measured on the last warm-up call) plus 0.5 ms, so
+    that fn's launches are queued before the start event runs and the host's
+    work between them does not land inside the events. Inputs above the
+    50 MB L2 cache are read from device memory on every call; with `cold`,
+    a 128 MB buffer is written before each timed call (outside the events),
+    so that smaller inputs are too."""
+    flush = torch.empty(32 << 20, device="cuda") if cold else None
     for _ in range(warmup):
+        torch.cuda.synchronize()
+        h = time.perf_counter()
         fn()
+        host_ms = (time.perf_counter() - h) * 1e3
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        _sleep_ms(2 * host_ms + 0.5)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -198,7 +288,7 @@ def check_shear(gen, n, s) -> dict:
 def check_shear_reduce(gen, n, s, row_lo, row_hi) -> dict:
     img = torch.rand((n, s, s), generator=gen, device="cuda")
     coef = (torch.rand((n,), generator=gen, device="cuda") - 0.5) * 0.9
-    args = (1, 1, s, row_lo, row_hi, 3)
+    args = (1, 1, s, rotate.ALPHA_BOUND, row_lo, row_hi, 3)
     run = lambda: rotate.shear_reduce(img, coef, *args)
     plain = lambda: rotate.shear_reduce_plain(img, coef, *args)
     out = compare("shear_reduce", run(), plain())
@@ -279,21 +369,23 @@ def kernels_phase() -> dict:
     return results
 
 
-def build_scene(w: int):
-    """bench.py's scene (bench.py:51-66): a point light in a smoothed random
-    cloud sprite, made with numpy from seed 0."""
+def build_scene(w: int, h: int | None = None, tex: int = 128):
+    """bench.py's scene (bench.py:51-66), w x w with a 128^2 cloud, or with
+    h and tex=256 runs/bench_1080p.py's (:69-89): a point light in a
+    smoothed random cloud sprite, made with numpy from seed 0."""
+    h = w if h is None else h
     rng = np.random.default_rng(0)
-    cloud = rng.uniform(0.0, 1.0, (128, 128)).astype(np.float32)
+    cloud = rng.uniform(0.0, 1.0, (tex, tex)).astype(np.float32)
     for _ in range(3):
         cloud = (np.roll(cloud, 1, 0) + np.roll(cloud, -1, 0)
                  + np.roll(cloud, 1, 1) + np.roll(cloud, -1, 1) + cloud) / 5.0
-    b = SceneBuilder(texture_size=128)
-    b.add_point_light((w * 0.5, w * 0.55), radius=4.0, color=(1.0, 0.85, 0.6),
+    b = SceneBuilder(texture_size=tex)
+    b.add_point_light((w * 0.5, h * 0.55), radius=4.0, color=(1.0, 0.85, 0.6),
                       intensity=2.0, bounces=2)
-    b.add_sprite((w / 2, w / 2), (w / 2, w / 2), color=(1, 1, 1, 1),
+    b.add_sprite((w / 2, h / 2), (w / 2, h / 2), color=(1, 1, 1, 1),
                  log_density=-1.0, texture=np.stack([cloud] * 3 + [cloud], -1))
     scene = b.build(max_lights=2, max_shapes=2, device="cuda")
-    return scene, rasterize(scene, w, w)
+    return scene, rasterize(scene, h, w)
 
 
 TRACE_OPTS = dict(max_bounces=BOUNCES, bounce_photons=BOUNCE_RAYS,
@@ -361,8 +453,8 @@ def frame_phase() -> dict:
     plain_raw = rbt.resolve_raw(cpu_fields, tuple(c.cpu() for c in src),
                                 RESOLUTION, RESOLUTION)
     resolve_err = float((raw.cpu() - plain_raw).abs().max() / plain_raw.abs().max())
-    if resolve_err > 1e-4:
-        failures.append(f"kernel resolve vs plain: {resolve_err} of max > 1e-4")
+    if resolve_err > RESOLVE_TOL:
+        failures.append(f"kernel resolve vs plain: {resolve_err} of max > {RESOLVE_TOL}")
     if failures:
         raise AssertionError("; ".join(failures))
     # The resolve above was the first at this shape (allocations, lazily
@@ -376,7 +468,7 @@ def frame_phase() -> dict:
                 ms_resolve_and_hdr_warm=warm,
                 peak_memory_bytes=peak, launches=launches,
                 direct_energy_rel_err=direct_rel, bounce_energy_share=bounce_share,
-                resolve_vs_plain_rel_err=resolve_err, resolve_tol=1e-4,
+                resolve_vs_plain_rel_err=resolve_err, resolve_tol=RESOLVE_TOL,
                 hdr_mean=float(hdr.mean()))
 
 
@@ -439,12 +531,12 @@ def build_pipeline_scene(width: int, height: int, seed: int = 0):
     return scene, rasterize(scene, height, width)
 
 
-def unet_flop(cfg, batch: int, height: int, width: int) -> int:
-    """Convolution FLOPs (2 per multiply-add) of one pass of the config's
-    mono UNet on (batch, height, width, 1), counted from the layers' output
-    shapes on the meta device."""
+def unet_flop(arch: dict, batch: int, height: int, width: int) -> int:
+    """Convolution FLOPs (2 per multiply-add) of one pass of the UNet of
+    `arch` on (batch, height, width, channels), counted from the layers'
+    output shapes on the meta device."""
     with torch.device("meta"):
-        net = LitboxDenoiserNet(cfg.unet_size, cfg.initial_features)
+        net = LitboxDenoiserNet(**arch)
     flop = [0]
 
     def count(m, _, out):
@@ -453,7 +545,7 @@ def unet_flop(cfg, batch: int, height: int, width: int) -> int:
 
     for m in net.modules():
         m.register_forward_hook(count)
-    net(torch.empty((batch, height, width, 1), device="meta"))
+    net(torch.empty((batch, height, width, net.out_channels), device="meta"))
     return flop[0]
 
 
@@ -480,10 +572,34 @@ def make_pipeline():
     return cfg, scene, gb, fields, weights, frame
 
 
-def pipeline_phase() -> tuple[dict, tuple]:
+def resolve_vs_float64(fields, src, cpu_fields, cpu_src, raw, plain_raw,
+                       height: int, width: int) -> dict:
+    """Where the card's resolve and the plain resolve part: each against the
+    same resolve in float64 (the plain versions on CPU copies; the shear
+    coefficients stay float32, as the kernels take them), relative to its
+    largest magnitude; and the scan (K1) alone likewise."""
+    f64 = rbt.RotatedFields(**{k: v.double() for k, v in vars(cpu_fields).items()})
+    src64 = tuple(c.double() for c in cpu_src)
+    exact = rbt.resolve_raw(f64, src64, height, width)
+    scale = float(exact.abs().max())
+    scan64 = attnscan.attenuation_scan_rows_plain(f64.trans, *src64)
+    scan_scale = max(float(d.abs().max()) for d in scan64)
+    scan_card = [d.cpu() for d in attnscan.attenuation_scan_rows(fields.trans, *src)]
+    scan_plain = attnscan.attenuation_scan_rows_plain(cpu_fields.trans, *cpu_src)
+
+    def rel(got, ref, den):
+        return max(float((g.double() - r).abs().max()) for g, r in zip(got, ref)) / den
+
+    return dict(kernel=rel([raw], [exact], scale), plain=rel([plain_raw], [exact], scale),
+                scan_kernel=rel(scan_card, scan64, scan_scale),
+                scan_plain=rel(scan_plain, scan64, scan_scale))
+
+
+def pipeline_phase(with_f64: bool = False) -> tuple[dict, tuple]:
     """make_frame_fn at the realtime sim size with PipelineConfig's defaults.
-    Returns the phase's numbers and (fields, sources, height, width) of its
-    last frame for the fused-resolve phase."""
+    With `with_f64`, the last resolve is also measured against float64 (see
+    resolve_vs_float64). Returns the phase's numbers and (fields, sources,
+    height, width) of its last frame for the fused-resolve phase."""
     torch.cuda.reset_peak_memory_stats()
     cfg, scene, gb, fields, weights, frame = make_pipeline()
     height, width = gb.height, gb.width
@@ -560,8 +676,10 @@ def pipeline_phase() -> tuple[dict, tuple]:
     plain_raw = rbt.resolve_raw(cpu_fields, cpu_src, height, width)
     raw = rbt.resolve_raw(fields, src, height, width).cpu()
     resolve_err = float((raw - plain_raw).abs().max() / plain_raw.abs().max())
-    if resolve_err > 1e-4:
-        failures.append(f"kernel resolve vs plain: {resolve_err} of max > 1e-4")
+    if resolve_err > RESOLVE_TOL:
+        failures.append(f"kernel resolve vs plain: {resolve_err} of max > {RESOLVE_TOL}")
+    resolve_f64 = (resolve_vs_float64(fields, src, cpu_fields, cpu_src, raw,
+                                      plain_raw, height, width) if with_f64 else None)
     del cpu_fields, cpu_src, plain_raw, raw
 
     # The card's denoiser against the same weights on the CPU, both float32.
@@ -585,14 +703,17 @@ def pipeline_phase() -> tuple[dict, tuple]:
                frames=FRAMES, ms_per_frame=(t1 - t0) / FRAMES * 1e3,
                stage_ms=stage_ms, stage_peak_extra_bytes=stage_peak,
                denoise_ms_tf32=denoise_tf32_ms,
-               unet_flop=unet_flop(cfg, 3, -(-height // 32) * 32, -(-width // 32) * 32),
+               unet_flop=unet_flop(dict(unet_size=cfg.unet_size,
+                                        initial_features=cfg.initial_features),
+                                   3, -(-height // 32) * 32, -(-width // 32) * 32),
                photons_per_s_trace=cfg.n_photons / (trace_ms * 1e-3),
                photons_per_s_frame=cfg.n_photons * FRAMES / (t1 - t0),
                peak_memory_bytes=peak, launches=launches,
                cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
                matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
                analytic_energy_rel_err=analytic_rel,
-               resolve_vs_plain_rel_err=resolve_err, resolve_tol=1e-4,
+               resolve_vs_plain_rel_err=resolve_err, resolve_tol=RESOLVE_TOL,
+               resolve_vs_float64=resolve_f64,
                denoise_vs_cpu_rel_err=denoise_rel,
                denoise_tol=1e-3, display_mean=float(display.mean()),
                hdr_mean=float(hdr.mean()))
@@ -640,6 +761,249 @@ def fused_resolve_phase(fields, src, height: int, width: int) -> dict:
                 all_bins=results[1], quarter_bins=results[4])
 
 
+PROD_FRAMES = 32       # timed frames of the shipped frame, after 1 warm frame
+PROD_STAGE_FRAMES = 16  # frames with CUDA events between the stages
+PROD_F32_FRAMES = 8    # frames beside a float32 display of the same frames
+PROD_SYNC_FRAMES = 8   # frames under torch's sync debug mode
+# The bf16 display's largest and mean deviation from a float32 display of
+# the same frame, on the [0, 1] display scale. The JAX package's own bf16
+# display lies up to 0.027 (mean 3.4e-4) from its float32 display on
+# test_torch_realtime.py's frames; held here at a little over twice that.
+BF16_DISPLAY_TOL = dict(max=0.0625, mean=1e-3)
+PROD_STAGES = ("deposits", "flush", "resolve", "display_cal", "display_fast",
+               "upsample_tonemap")
+
+
+def _clone_state(state: realtime.PairFrameState) -> realtime.PairFrameState:
+    return realtime.PairFrameState(
+        src2=tuple(c.clone() for c in state.src2), cache=state.cache.clone(),
+        pend_flat=state.pend_flat.clone(), pend_vals=state.pend_vals.clone(),
+        k_prev=state.k_prev.clone(), r=state.r.clone(), frame=state.frame)
+
+
+def make_production():
+    """The shipped frame on REALTIME_1080P and bench_1080p.py's scene, with
+    the shipped net's shape and weights drawn on the card from UNET_SEED.
+    Returns (scene, gbuffer, fields, float32 weights, make) where
+    make(weights) builds (init_state, step) with those weights."""
+    prof = REALTIME_1080P
+    scene, gb = build_scene(prof.sim_width, prof.sim_height, tex=256)
+    brdf = torch.from_numpy(luts.brdf_lut()).cuda()
+    fields = rbt.precompute_rotated_fields(gb, n_bins=prof.n_bins)
+    torch.manual_seed(UNET_SEED)
+    with torch.device("cuda"):
+        weights32 = LitboxDenoiserNet(**realtime.SHIPPED_NET).state_dict()
+    make = lambda w: realtime.make_pair_frame_step(
+        gb, scene.lights, scene.field_textures, brdf, fields, w, prof=prof)
+    return scene, gb, fields, weights32, make
+
+
+def production_phase() -> dict:
+    """engine.realtime's frame on REALTIME_1080P, as runs/bench_1080p.py
+    --pair-fast drives it (:415-438): 1 warm frame, then PROD_FRAMES frames
+    with the launch counts read around them."""
+    prof = REALTIME_1080P
+    torch.cuda.reset_peak_memory_stats()
+    scene, gb, fields, weights32, make = make_production()
+    height, width = gb.height, gb.width
+    init_state, step = make(realtime.display_weights(weights32, prof))
+    state = init_state()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    step(state, gen)
+    torch.cuda.synchronize()
+    setup_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(PROD_FRAMES):
+        pix, k = step(state, gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    display_range = (float(pix.min()), float(pix.max()))
+    k_last = float(k)
+
+    # Host synchronisations over PROD_SYNC_FRAMES frames (a flush and a
+    # calibration display among them).
+    syncs = host_syncs(lambda: [step(state, gen) for _ in range(PROD_SYNC_FRAMES)])
+
+    # Stage times: CUDA events at the step's stage marks.
+    stage_ms = {name: [] for name in PROD_STAGES}
+    for _ in range(PROD_STAGE_FRAMES):
+        events = [("start", torch.cuda.Event(enable_timing=True))]
+        events[0][1].record()
+
+        def mark(name, events=events):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((name, ev))
+
+        step(state, gen, mark)
+        events[-1][1].synchronize()
+        for (_, a), (name, b) in zip(events, events[1:]):
+            stage_ms[name].append(a.elapsed_time(b))
+    stage_median = {k: statistics.median(v) for k, v in stage_ms.items() if v}
+    stage_median["flush_amortized"] = sum(stage_ms["flush"]) / PROD_STAGE_FRAMES
+
+    # The bf16 display against a float32 display of the same frames: both
+    # steps from one state, with the same generator state each frame.
+    _, step32 = make(weights32)
+    state32 = _clone_state(state)
+    dev_max, dev_mean = [], []
+    for _ in range(PROD_F32_FRAMES):
+        rng = gen.get_state()
+        pix16, _ = step(state, gen)
+        gen.set_state(rng)
+        pix32, _ = step32(state32, gen)
+        diff = (pix16.float() - pix32).abs()
+        dev_max.append(float(diff.max()))
+        dev_mean.append(float(diff.mean()))
+    del state32
+
+    # resolve_raw against K1 + K4 at the group shape (one tracer, one group).
+    d, s_rot, groups = fields.n_bins, fields.size, prof.resolve_groups
+    oy, ox = (s_rot - height) // 2, (s_rot - width) // 2
+    tracer, group = 1, 3 % groups
+    base = tuple(-i * 2.0 * np.pi / d for i in range(group, d, groups))
+
+    def fused():
+        dep = attnscan.attenuation_scan_rows(fields.trans, *state.src2, group=group,
+                                             n_groups=groups, src_offset=tracer * d)
+        out = rotate.rotate_planar_sum_fused(dep, base, 0.0)
+        return out[:, oy:oy + height, ox:ox + width].movedim(0, -1)
+
+    def quadrant():
+        return rbt.resolve_raw(fields, state.src2, height, width, group=group,
+                               n_groups=groups, tracer=tracer)
+
+    a, b = fused(), quadrant()
+    group_resolve = dict(
+        shape=f"3x({d // groups},{s_rot},{s_rot}) tracer {tracer} group {group}/{groups}",
+        resolve_raw_ms=time_ms(quadrant), fused_ms=time_ms(fused),
+        mass_rel=float(abs(a.double().sum() / b.double().sum() - 1)),
+        mean_abs_diff_rel=float((a - b).abs().mean() / b.abs().mean()))
+
+    failures = []
+    if missing := unlaunched(launches, RESOLVE_KERNELS):
+        failures.append(f"kernels of the path were not launched: {missing}")
+    frames = state.frame
+    iters = float(frames)
+    hdr = [to_hdr(state.cache[t].sum(0), iters, gb) for t in (0, 1)]
+    if not all(bool(torch.isfinite(x).all()) and float(x.min()) >= 0 for x in hdr):
+        failures.append("HDR is not finite and non-negative")
+    if pix.shape != (prof.out_height, prof.out_width, 3) or not (
+            display_range[0] >= 0 and display_range[1] <= 1):
+        failures.append(f"display {tuple(pix.shape)} outside [0, 1]: {display_range}")
+    if not 0 <= k_last <= 1:
+        failures.append(f"k {k_last} outside [0, 1]")
+    energy = [sum(float(c[t * d:(t + 1) * d].double().sum()) for c in state.src2)
+              for t in (0, 1)]
+    energy_rel = abs(energy[0] - energy[1]) / (0.5 * (energy[0] + energy[1]))
+    blocks_differ = float((state.src2[0][:d] - state.src2[0][d:]).abs().max()) > 0
+    if not blocks_differ or energy_rel > 0.05:
+        failures.append(f"tracer blocks: differ {blocks_differ}, energies {energy}")
+    partition = []
+    for t in (0, 1):
+        full = rbt.resolve_raw(fields, state.src2, height, width, tracer=t)
+        parts = sum(rbt.resolve_raw(fields, state.src2, height, width, group=g,
+                                    n_groups=groups, tracer=t) for g in range(groups))
+        partition.append(float((parts - full).abs().max() / full.abs().max()))
+    if max(partition) > 1e-4:
+        failures.append(f"group resolves vs full resolve: {partition} of max > 1e-4")
+    if syncs:
+        failures.append(f"the frame made the host wait for the card at {sorted(set(syncs))}")
+    bf16_dev = dict(max=max(dev_max), mean=statistics.mean(dev_mean))
+    if any(not bf16_dev[k] <= BF16_DISPLAY_TOL[k] for k in bf16_dev):
+        failures.append(f"bf16 display vs float32: {bf16_dev} beyond {BF16_DISPLAY_TOL}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    per_frame = prof.photons + prof.bounce_photons
+    padded = (-(-height // 32) * 32, -(-width // 32) * 32)
+    return dict(
+        sim_size=[width, height], out_size=[prof.out_width, prof.out_height],
+        rot_size=s_rot, n_bins=d, photons=prof.photons, bounce_photons=prof.bounce_photons,
+        resolve_groups=groups, flush_k=realtime.FLUSH_K, cal=realtime.CAL,
+        net=dict(realtime.SHIPPED_NET, seed=UNET_SEED, dtype="bfloat16"),
+        frames=PROD_FRAMES, ms_per_frame=(t1 - t0) / PROD_FRAMES * 1e3,
+        photons_per_s=per_frame * PROD_FRAMES / (t1 - t0),
+        stage_ms=stage_median, stage_frames=PROD_STAGE_FRAMES,
+        peak_memory_bytes=peak, setup_peak_memory_bytes=setup_peak,
+        deposit_stream_m=int(state.pend_flat.shape[1]),
+        launches=launches, group_resolve=group_resolve,
+        host_syncs=dict(frames=PROD_SYNC_FRAMES, count=len(syncs),
+                        sites=sorted(set(syncs))),
+        display_flop=dict(single=unet_flop(realtime.SHIPPED_NET, 1, *padded),
+                          calibration=unet_flop(realtime.SHIPPED_NET, 2, *padded)),
+        bf16_vs_f32_display=dict(frames=PROD_F32_FRAMES, tol=BF16_DISPLAY_TOL, **bf16_dev),
+        display_range=display_range, k=k_last, tracer_energy=energy,
+        tracer_energy_rel=energy_rel, group_partition_rel=partition,
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+
+
+def rotfused_split_phase() -> tuple[dict, dict]:
+    """runs/prof_rotfused.py on the card: V1-V4 and K4 on the same images,
+    at the script's (384, 640, 640) and at the frame's group shape
+    (24, 640, 640), timed from device memory (the group shape is under the
+    L2 size, so the cache is flushed before each timed call), then each held
+    against its plain version. Returns (launches, per-kernel cases)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    reset_counts()
+    cases = {name: [] for name in SPLIT + ("rotate_planar_sum_fused",)}
+    inputs = []
+    for n, s in ((3 * N_BINS, 640), (3 * N_BINS // REALTIME_1080P.resolve_groups, 640)):
+        img = torch.rand((n, s, s), generator=gen, device="cuda")
+        resid = (torch.rand((n,), generator=gen, device="cuda") - 0.5) * (np.pi / 2)
+        alpha, beta = -torch.tan(resid / 2), torch.sin(resid)
+        d = n // 3
+        base = tuple(-i * 2 * np.pi / N_BINS for i in range(0, N_BINS, N_BINS // d))
+        chans = tuple(img[c * d:(c + 1) * d] for c in range(3))
+        args = {"copy_accum": (img,), "transpose2_accum": (img,),
+                "shear1_accum": (img, alpha), "shear3_accum": (img, alpha, beta)}
+        runs = len(rotate._quadrant_groups(base))
+        plane = 4 * s * s
+        # Operations per image and texel: V1/V2 one add; V3 a shift (4) and
+        # a lerp (3) and the add; V4 three of those; K4 ROT3_OPS.
+        ops = {"copy_accum": 1, "transpose2_accum": 1, "shear1_accum": 8,
+               "shear3_accum": 22}
+        for name in SPLIT:
+            fn = getattr(rotfused, name)
+            b, by = bound(plane * (n + 1), ops[name] * n * s * s)
+            cases[name].append(dict(
+                shape=f"({n},{s},{s})", ms=time_ms(lambda: fn(*args[name]), cold=True),
+                bound_ms=b, bound_by=by))
+        b, by = bound(plane * (n + 3 * runs), ROT3_OPS * n * s * s)
+        cases["rotate_planar_sum_fused"].append(dict(
+            shape=f"3x({d},{s},{s}) runs {runs}", bound_ms=b, bound_by=by,
+            ms=time_ms(lambda: rotate.rotate_planar_sum_fused(chans, base, 0.0), cold=True)))
+        inputs.append((img, args, chans, base))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    # Held against the plain versions, with their times and the library
+    # yardstick where one PyTorch call computes the same function: V1 and V2
+    # both compute the images' sum.
+    for i, (img, args, chans, base) in enumerate(inputs):
+        sum_ms = time_ms(lambda: torch.sum(img, 0), cold=True)
+        for name in SPLIT:
+            library = (dict(library_ms=sum_ms, library="torch.sum")
+                       if name in ("copy_accum", "transpose2_accum")
+                       else dict(library_ms=None, library=None))
+            fn, plain = getattr(rotfused, name), getattr(rotfused, name + "_plain")
+            c = cases[name][i]
+            c.update(compare(name, fn(*args[name]), plain(*args[name])),
+                     plain_ms=time_ms(lambda: plain(*args[name]), reps=3, warmup=1),
+                     **library)
+        plain = lambda: rotate.rotate_planar_sum_fused_plain(chans, base, 0.0)
+        cases["rotate_planar_sum_fused"][i].update(
+            compare("rotate_planar_sum_fused",
+                    rotate.rotate_planar_sum_fused(chans, base, 0.0), plain()),
+            plain_ms=time_ms(plain, reps=3, warmup=1), library_ms=None)
+    del inputs
+    torch.cuda.empty_cache()
+    return launches, cases
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the card only")
@@ -669,7 +1033,7 @@ def main() -> None:
     print(json.dumps({"frame": frame}))
 
     t0 = time.perf_counter()
-    pipe, last = pipeline_phase()
+    pipe, last = pipeline_phase(with_f64="--resolve-f64" in sys.argv[1:])
     phase("pipeline", t0)
     print(json.dumps({"pipeline": pipe}))
 
@@ -677,14 +1041,35 @@ def main() -> None:
     fused = fused_resolve_phase(*last)
     phase("fused_resolve", t0)
     print(json.dumps({"fused_resolve": fused}))
+    del last
+    torch.cuda.empty_cache()
 
-    # launches: the count on the path that drives each kernel, the pipeline
-    # for K1-K3 and the fused resolve for K4; every path's counts beside it.
+    t0 = time.perf_counter()
+    prod = production_phase()
+    phase("production", t0)
+    print(json.dumps({"production": prod}))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    split_launches, split = rotfused_split_phase()
+    phase("rotfused_split", t0)
+    print(json.dumps({"rotfused_split": dict(launches=split_launches, cases=split)}))
+    for kname, cases in split.items():
+        measured[kname] = tuple(measured.get(kname, ())) + tuple(cases)
+    if missing := unlaunched(split_launches, SPLIT + ("rotate_planar_sum_fused",)):
+        raise AssertionError(f"kernels of the split were not launched: {missing}")
+
+    # launches: the count on the path that drives each kernel, the shipped
+    # frame for K1-K3, the fused resolve for K4 and the split for V1-V4;
+    # every path's counts beside it.
     paths = {"bench_frame": frame["launches"], "pipeline": pipe["launches"],
-             "fused_resolve": fused["launches"]}
+             "fused_resolve": fused["launches"], "production": prod["launches"],
+             "rotfused_split": split_launches}
+    drives = {"rotate_planar_sum_fused": "fused_resolve",
+              **{name: "rotfused_split" for name in SPLIT}}
     rows = []
     for kname, cases in measured.items():
-        path = "fused_resolve" if kname == "rotate_planar_sum_fused" else "pipeline"
+        path = drives.get(kname, "production")
         rows.append(dict(name=kname, route="cuda", **{
             k: KERNELS[kname][k] for k in ("source", "replaces")},
             launches=paths[path][kname],

@@ -2,7 +2,13 @@
 (counterpart of the JAX package's engine/pipeline.py, BASELINE config 5).
 
 The JAX package jits the frame into one XLA program; here each stage runs
-eagerly on the device its inputs lie on. `AIAccelerator` is not ported yet.
+eagerly on the device its inputs lie on. `AIAccelerator` is not ported yet;
+`denoise_pair_auto` is the body of its dual-tracer display step.
+
+The UNet runs at the precision of its weights: with bf16 weights (the
+realtime profile's `bf16_display`) its input is cast to bf16 and its output
+back to the input's dtype, as the JAX package's 1080p frame does around its
+denoiser calls.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
+from ..nn.infer import PRODUCTION_FLOOR_GATE, PRODUCTION_K_FLOOR, blend_pair_symmetric
 from ..nn.unet import LitboxDenoiserNet, TransformConfig, post_transform, pre_transform
 from ..post.tonemap import UchimuraShape, UE5Shape, tonemap_uchimura, tonemap_ue5
 from ..sim import rbt
@@ -41,19 +48,24 @@ def _pad32(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph), mode="reflect").permute(0, 2, 3, 1)
 
 
+def _weights_dtype(model: LitboxDenoiserNet, model_variables) -> torch.dtype:
+    weights = model.parameters() if model_variables is None else model_variables.values()
+    return next(w.dtype for w in weights if w.is_floating_point())
+
+
 def _run_net(model: LitboxDenoiserNet, model_variables, x: torch.Tensor,
              transform: TransformConfig) -> torch.Tensor:
     """pre_transform, the net with `model_variables` as its weights (the
     module's own when None; the counterpart of Flax's model.apply), then
-    post_transform."""
-    xin, stats = pre_transform(x, transform)
+    post_transform, all at the weights' dtype; the result is in x's dtype."""
+    xin, stats = pre_transform(x.to(_weights_dtype(model, model_variables)), transform)
     with torch.no_grad():
         if model_variables is None:
             out = model(xin)
         else:
             out = torch.func.functional_call(model, dict(model_variables), (xin,),
                                              strict=True)
-    return post_transform(out, stats, transform)
+    return post_transform(out, stats, transform).to(x.dtype)
 
 
 def denoise_hdr(model: LitboxDenoiserNet, model_variables,
@@ -92,6 +104,19 @@ def denoise_pair_hdr(model: LitboxDenoiserNet, model_variables,
         return out[0, :h, :w, :], out[1, :h, :w, :]
     out = out[:, :h, :w, 0]
     return out[:3].permute(1, 2, 0), out[3:].permute(1, 2, 0)
+
+
+def denoise_pair_auto(model: LitboxDenoiserNet, model_variables,
+                      a: torch.Tensor, b: torch.Tensor,
+                      transform: TransformConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dual-tracer display of the JAX package's AIAccelerator with
+    blend='auto' (its run_auto, without the optional blend prior): denoise
+    both tracers' HDR images in one batched pass and show the k-blended pair
+    mean, k from `blend_pair_symmetric` with the shipped floor and gate.
+    Returns (display (H, W, 3), k as a 0-d tensor on the images' device)."""
+    out_a, out_b = denoise_pair_hdr(model, model_variables, a, b, transform)
+    return blend_pair_symmetric(out_a, out_b, a, b, k_floor=PRODUCTION_K_FLOOR,
+                                floor_gate=PRODUCTION_FLOOR_GATE)
 
 
 def make_frame_fn(cfg: PipelineConfig, gbuffer, lights, field_textures, brdf_lut,

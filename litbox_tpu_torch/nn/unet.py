@@ -21,6 +21,7 @@ in Flax): the port runs the net for inference only.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -147,14 +148,26 @@ class TransformConfig:
     epsilon: float = 1e-6
 
 
+def _ln2(dtype: torch.dtype) -> float:
+    """log(2) rounded to `dtype` (a host number, exact in that dtype)."""
+    return float(torch.tensor(math.log(2.0), dtype=dtype))
+
+
 def pre_transform(x: torch.Tensor, cfg: TransformConfig):
-    """(B, H, W, C) -> (x, stats): optional log2 and per-image normalization."""
+    """(B, H, W, C) -> (x, stats): optional log2 and per-image normalization,
+    rounded where the JAX package's rounds, so that a bf16 input gives its
+    bf16 result bit for bit: jnp.log2 is log(x) / log(2) in x's dtype (in
+    bf16, log(2) itself is rounded, 0.2% low), and jnp.std the square root,
+    in x's dtype, of a variance taken in float32."""
     stats = None
     if cfg.use_log_space:
-        x = torch.log2(x + cfg.epsilon)
+        # A divisor on x's device: CUDA divides by a host scalar as a
+        # product with its reciprocal, which rounds otherwise.
+        x = torch.log(x + cfg.epsilon) / torch.full((), _ln2(x.dtype), dtype=x.dtype,
+                                                    device=x.device)
     if cfg.normalize_input:
         mean = x.mean(dim=(1, 2), keepdim=True)
-        std = x.std(dim=(1, 2), keepdim=True, correction=0)
+        std = x.float().var(dim=(1, 2), keepdim=True, correction=0).to(x.dtype).sqrt()
         x = (x - mean) / (std + cfg.epsilon)
         stats = (mean, std)
     return x, stats
@@ -165,6 +178,7 @@ def post_transform(x: torch.Tensor, stats, cfg: TransformConfig) -> torch.Tensor
         mean, std = stats
         x = x * (std + cfg.epsilon) + mean
     if cfg.use_log_space:
-        # The exponent is clipped: 2^40 ~ 1e12 is beyond any radiance.
-        x = torch.exp2(torch.clamp(x, -40.0, 40.0)) - cfg.epsilon
+        # The exponent is clipped: 2^40 ~ 1e12 is beyond any radiance. 2^x
+        # as jax.lax.exp2 lowers it, exp(x * log(2)) with log(2) in x's dtype.
+        x = torch.exp(torch.clamp(x, -40.0, 40.0) * _ln2(x.dtype)) - cfg.epsilon
     return x

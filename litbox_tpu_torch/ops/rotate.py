@@ -11,9 +11,11 @@ different angle per image (the RBT engine's direction bins).
 (pallas_call at :210); both are CUDA C++ in `csrc/rotate.cu`, one thread per
 output element, bound by bytes (shear: one read and one write of the batch,
 453 MB at (384, 384, 384), 0.14 ms at 3.35 TB/s; shear_reduce: one read of
-the needed rows, 151 MB at the bench shape, 0.045 ms). The kernels compute
-the shift exactly for any coefficient, so the Pallas version's static
-`coef_bound` (which sized its roll loop) is not an argument here.
+the needed rows, 151 MB at the bench shape, 0.045 ms). Both take the JAX
+functions' arguments in the JAX order, `coef_bound` included, so a call
+written for the JAX package binds the same parameters here. The kernels
+compute the shift exactly for any coefficient, so `coef_bound` (the static
+bound on |coef| that sized the Pallas roll loop) bounds nothing here.
 
 `rotate_planar_sum_fused` replaces the Pallas kernel
 `litbox_tpu/ops/rotate.py::rotate_planar_sum_fused` (pallas_call at :458):
@@ -37,6 +39,12 @@ import numpy as np
 import torch
 
 from . import cuda_lib
+
+# The JAX package's static coefficient bounds of the Paeth decomposition
+# (residual angles in [-45, 45] degrees), passed as `coef_bound` where the
+# JAX package passes them.
+ALPHA_BOUND = 0.41422  # tan(pi/8) + eps
+BETA_BOUND = 0.70712   # sin(pi/4) + eps
 
 
 def _check_shear(img, coef, row_div: int, elem_scale: int, n_texels: int) -> None:
@@ -78,15 +86,16 @@ def _shear_rows_plain(img: torch.Tensor, coef: torch.Tensor, row0: int,
 
 
 def shear_plain(img: torch.Tensor, coef: torch.Tensor, row_div: int,
-                elem_scale: int, n_texels: int) -> torch.Tensor:
+                elem_scale: int, n_texels: int,
+                coef_bound: float = 1.0) -> torch.Tensor:
     """`shear` in plain PyTorch (two gathers and a lerp)."""
     _check_shear(img, coef, row_div, elem_scale, n_texels)
     return _shear_rows_plain(img, coef, 0, row_div, elem_scale, n_texels)
 
 
 def shear_reduce_plain(img: torch.Tensor, coef: torch.Tensor, row_div: int,
-                       elem_scale: int, n_texels: int, row_lo: int,
-                       row_hi: int, groups: int = 1) -> torch.Tensor:
+                       elem_scale: int, n_texels: int, coef_bound: float,
+                       row_lo: int, row_hi: int, groups: int = 1) -> torch.Tensor:
     """`shear_reduce` in plain PyTorch."""
     _check_reduce(img, coef, row_div, elem_scale, n_texels, row_lo, row_hi, groups)
     n, _, width = img.shape
@@ -97,13 +106,15 @@ def shear_reduce_plain(img: torch.Tensor, coef: torch.Tensor, row_div: int,
 
 
 def shear(img: torch.Tensor, coef: torch.Tensor, row_div: int,
-          elem_scale: int, n_texels: int) -> torch.Tensor:
+          elem_scale: int, n_texels: int, coef_bound: float = 1.0) -> torch.Tensor:
     """out[d, r, l] = (1-f)*img[d, r, l + i*e] + f*img[d, r, l + (i+1)*e]
     with i + f = coef[d] * (r//row_div + 0.5 - n_texels/2) and e = elem_scale,
     a tap outside texels [0, n_texels) counting 0.
 
     img (N, R, W) with W = n_texels * elem_scale; the shift axis is the last
-    (lane) axis in units of `elem_scale` lanes per texel.
+    (lane) axis in units of `elem_scale` lanes per texel. `coef_bound` is
+    accepted for the JAX signature and not used: the shift is exact for any
+    coefficient.
     """
     if cuda_lib.on_cpu(img, coef):
         return shear_plain(img, coef, row_div, elem_scale, n_texels)
@@ -123,15 +134,16 @@ shear.launches = 0
 
 
 def shear_reduce(img: torch.Tensor, coef: torch.Tensor, row_div: int,
-                 elem_scale: int, n_texels: int, row_lo: int, row_hi: int,
-                 groups: int = 1) -> torch.Tensor:
+                 elem_scale: int, n_texels: int, coef_bound: float,
+                 row_lo: int, row_hi: int, groups: int = 1) -> torch.Tensor:
     """Final-pass shear: apply each image's shear to rows [row_lo, row_hi)
     only and sum each contiguous group of N/groups images. Returns
     (groups, row_hi - row_lo, W), or (row_hi - row_lo, W) for groups=1.
-    The sum runs over the images of a group in order."""
+    The sum runs over the images of a group in order. `coef_bound` is
+    accepted for the JAX signature and not used, as in `shear`."""
     if cuda_lib.on_cpu(img, coef):
         return shear_reduce_plain(img, coef, row_div, elem_scale, n_texels,
-                                  row_lo, row_hi, groups)
+                                  coef_bound, row_lo, row_hi, groups)
     cuda_lib.require_cuda_float32("shear_reduce", img, coef)
     _check_reduce(img, coef, row_div, elem_scale, n_texels, row_lo, row_hi, groups)
     n, rows, width = img.shape
@@ -164,13 +176,18 @@ def _quadrant_groups(angles) -> list:
 def _residuals(base_angles: tuple, delta, dev) -> torch.Tensor:
     """Per-bin shear residual angles base_res[d] + delta on `dev` (float32).
     A float delta is added on the host, so no scalar is copied to the device
-    on its own."""
+    on its own. The angles go to the card from pinned memory without
+    blocking: a copy from pageable memory would wait for the stream."""
     base_res = np.asarray(
         [a - round(a / (np.pi / 2)) * (np.pi / 2) for a in base_angles],
         np.float32)
-    if isinstance(delta, torch.Tensor):
-        return torch.from_numpy(base_res).to(dev) + delta.to(dev, torch.float32)
-    return torch.from_numpy(base_res + np.float32(delta)).to(dev)
+    if not isinstance(delta, torch.Tensor):
+        base_res += np.float32(delta)
+    host = torch.from_numpy(base_res)
+    if torch.device(dev).type == "cuda":
+        host = host.pin_memory()
+    res = host.to(dev, non_blocking=True)
+    return res + delta.to(dev, torch.float32) if isinstance(delta, torch.Tensor) else res
 
 
 def rotate_planar_sum(channels: tuple, base_angles: tuple, delta,
@@ -205,12 +222,14 @@ def rotate_planar_sum(channels: tuple, base_angles: tuple, delta,
 
     alpha = (-torch.tan(residual / 2.0)).repeat(c)
     beta = torch.sin(residual).repeat(c)
-    flat = shear(pre, alpha, row_div=1, elem_scale=1, n_texels=s)
+    flat = shear(pre, alpha, row_div=1, elem_scale=1, n_texels=s,
+                 coef_bound=ALPHA_BOUND)
     t = shear(flat.transpose(1, 2).contiguous(), beta, row_div=1,
-              elem_scale=1, n_texels=s)
+              elem_scale=1, n_texels=s, coef_bound=BETA_BOUND)
     flat = t.transpose(1, 2).contiguous()
     return shear_reduce(flat, alpha, row_div=1, elem_scale=1, n_texels=s,
-                        row_lo=row_lo, row_hi=row_hi, groups=c)
+                        coef_bound=ALPHA_BOUND, row_lo=row_lo, row_hi=row_hi,
+                        groups=c)
 
 
 def _check_fused(channels: tuple, base_angles: tuple) -> tuple[int, int]:

@@ -52,7 +52,7 @@ def tonemap_uchimura(x: torch.Tensor, shape: UchimuraShape = UchimuraShape()) ->
     cp = -c2 / p
 
     w0 = 1.0 - _smoothstep(0.0, m, x)
-    w2 = torch.where(x >= m + l0, 1.0, 0.0)
+    w2 = (x >= m + l0).to(x.dtype)  # keeps a bf16 display in bf16
     w1 = 1.0 - w0 - w2
 
     t = m * torch.clamp(x / m, min=0.0) ** c + b

@@ -38,17 +38,26 @@ def effective_bounces(bounces: torch.Tensor, override) -> torch.Tensor:
     return bounces if override < 0 else torch.full_like(bounces, override)
 
 
-def assign_photons_to_lights(lights: Lights, n_photons: int):
+def assign_photons_to_lights(lights: Lights, n_photons: int, interleave: int = 1):
     """Deterministic proportional split of the photon batch across lights.
 
     Returns (light_index (N,) int32, rays_per_light (L,) int64). Proportions
     follow luminance like ForwardMonteCarlo.Integrate (ForwardMonteCarlo.cs:174-186).
+
+    interleave > 1 permutes the batch ranks so that the contiguous prefix of
+    n/interleave photons is the every-interleave-th systematic subsample of
+    the canonical order (rank arithmetic, as in the JAX package).
     """
     dev = lights.energy.device
     w = luminance(lights.energy) * lights.active.float()
     cum = torch.cumsum(w, 0)
     total = cum[-1]
     rank = torch.arange(n_photons, dtype=torch.int32, device=dev)
+    if interleave > 1:
+        keep = n_photons // interleave
+        body = keep * interleave
+        perm = (rank % keep) * interleave + rank // keep
+        rank = torch.where(rank < body, perm, rank)
     t = (rank.float() + 0.5) / n_photons * total
     l_idx = torch.searchsorted(cum, t, right=True).to(torch.int32)
     l_idx = torch.clamp(l_idx, max=lights.capacity - 1)

@@ -12,8 +12,9 @@ and rotates every bin back into the target frame and sums.
 The trace runs every light kind with the JAX package's default options
 (analytic direct light for point lights, Monte-Carlo direct light for the
 rest, bounce chains emitted by `emit`, BRDF materials) and bench.py's
-stamp-histogram options. Two options still raise NotImplementedError naming
-themselves: `n_tracers>1` and `exact_collimated`. Random numbers come from
+stamp-histogram options, with one tracer or several (`n_tracers`, the
+dual-tracer pair of the shipped realtime frame). One option still raises
+NotImplementedError naming itself: `exact_collimated`. Random numbers come from
 an explicit `torch.Generator` on the fields' device, so the draws differ
 from the JAX package's threefry stream and the two agree in distribution,
 not bit for bit.
@@ -147,9 +148,11 @@ def _analytic_point_deposits(lights, light_mask: torch.Tensor,
     (flat_idx, values), light-major then bin, row and column, the JAX
     version's order. All lights are computed at once (the JAX version loops
     over the light capacity); a disabled light's values are 0.
+
+    n_tracers > 1: the expectation is deterministic, so every tracer block
+    gets the same stream at its own bin block (values tiled, indices offset
+    by tr*D*S*S), tracer-major as in the JAX version.
     """
-    if n_tracers != 1:
-        raise NotImplementedError("n_tracers>1 not ported yet")
     d_bins, s = fields.n_bins, fields.size
     dev = fields.trans.device
     stamp = ANALYTIC_STAMP
@@ -179,7 +182,9 @@ def _analytic_point_deposits(lights, light_mask: torch.Tensor,
     enabled = torch.where(light_mask, 1.0, 0.0)[:, None, None, None, None]
     vals = (enabled * cover[:, None, :, :, None]
             * per_bin[:, None, None, None, :]).expand(-1, d_bins, -1, -1, -1)
-    return flat.reshape(-1), vals.reshape(-1, 3)
+    offs = torch.arange(n_tracers, device=dev) * (d_bins * s * s)
+    flat = (flat.reshape(1, -1) + offs[:, None]).reshape(-1)
+    return flat, vals.reshape(-1, 3).repeat(n_tracers, 1)
 
 
 def _rotated_coords(fields: RotatedFields, pos: torch.Tensor,
@@ -301,25 +306,31 @@ def _mc_point_hist_deposits(lights, fields: RotatedFields, n_photons: int,
     histogram multiplies counts by that constant. Requires every active
     light to be a point light of radius < STAMP/2 - 1 so the stamp never
     clips.
+
+    n_tracers > 1 splits the n photons into T independent tracer batches in
+    the same histogram, the JAX version's partition: cap = ceil(n / (D*T)),
+    the slot axis widens to T*cap (slot j belongs to tracer j // cap and
+    light l_of_slot[j % cap]), the tracer is folded into the count index,
+    and tracer t's aggregate lands at bin block t*D. Each tracer's energy is
+    normalized by its own ray count cap*D.
     """
-    if n_tracers != 1:
-        raise NotImplementedError("n_tracers>1 not ported yet")
     d_bins, s = fields.n_bins, fields.size
     dev = fields.trans.device
     capacity = lights.capacity
     stamp = ANALYTIC_STAMP
-    cap = -(-n_photons // d_bins)
-    n_emitted = cap * d_bins
+    cap = -(-n_photons // (d_bins * n_tracers))
+    n_emitted = cap * d_bins * n_tracers
 
     l_of_slot, slots = assign_photons_to_lights(lights, cap)
+    l_of_slot = l_of_slot.repeat(n_tracers)                    # (T*cap,)
     l_slot = l_of_slot.long()
-    aff = take_per_light(lights.affine, l_of_slot)             # (cap, 2, 3)
-    rel_slot = aff[:, :, 2] - fields.center                    # (cap, 2)
+    aff = take_per_light(lights.affine, l_of_slot)             # (T*cap, 2, 3)
+    rel_slot = aff[:, :, 2] - fields.center                    # (T*cap, 2)
 
     # Disk offsets in the target frame (light affine scales/rotates).
-    u = torch.rand((d_bins, cap, 2), generator=generator, device=dev)
+    u = torch.rand((d_bins, cap * n_tracers, 2), generator=generator, device=dev)
     disk = unit_from_angle(u[..., 0] * TWO_PI) * torch.sqrt(u[..., 1])[..., None]
-    off = affine_linear(aff[None], disk)                       # (D, cap, 2)
+    off = affine_linear(aff[None], disk)                       # (D, T*cap, 2)
 
     # Per-(bin, light) stamp anchors from the exact light centers.
     relc = lights.affine[:, :, 2] - fields.center              # (L, 2)
@@ -337,13 +348,15 @@ def _mc_point_hist_deposits(lights, fields: RotatedFields, n_photons: int,
     lx = (torch.floor(xr).long() - axl[:, l_slot]).clamp(0, stamp - 1)
     ly = (torch.floor(yr).long() - ayl[:, l_slot]).clamp(0, stamp - 1)
     n_cells = capacity * stamp * stamp
-    col = (torch.arange(d_bins, device=dev)[:, None] * n_cells
-           + l_slot[None] * (stamp * stamp) + ly * stamp + lx)  # (D, cap)
+    tracer = torch.arange(cap * n_tracers, device=dev) // cap   # (T*cap,)
+    col = (torch.arange(d_bins, device=dev)[:, None] * (n_tracers * n_cells)
+           + (tracer * n_cells + l_slot * (stamp * stamp))[None]
+           + ly * stamp + lx)                                  # (D, T*cap)
     # Integer scatter_add_ into a known size: exact counts, and unlike
     # bincount no read-back of the maximum to the host.
-    counts = torch.zeros(d_bins * n_cells, dtype=torch.long, device=dev)
+    counts = torch.zeros(d_bins * n_tracers * n_cells, dtype=torch.long, device=dev)
     counts.scatter_add_(0, col.reshape(-1), torch.ones_like(col).reshape(-1))
-    counts = counts.float().reshape(d_bins, capacity, stamp * stamp)
+    counts = counts.float().reshape(d_bins, n_tracers, capacity, stamp * stamp)
 
     # Per-light photon energy constant (same for every slot of a light).
     bounces_l = effective_bounces(lights.bounces, override_bounces)
@@ -351,13 +364,16 @@ def _mc_point_hist_deposits(lights, fields: RotatedFields, n_photons: int,
     e_l = (lights.energy * (pixel_count / TWO_PI) / rays_l[:, None]
            * lights.active.float()[:, None]
            * (bounces_l > 0).float()[:, None])                 # (L, 3)
-    vals = counts[..., None] * e_l[None, :, None, :]           # (D, L, c, 3)
+    vals = (counts[..., None] * e_l[None, None, :, None, :]    # (D, T, L, c, 3)
+            ).transpose(0, 1)                                  # (T, D, L, c, 3)
 
-    # Aggregate deposit stream: D*L*stamp^2 cells.
+    # Aggregate deposit stream: T*D*L*stamp^2 cells, tracer-major.
     o = torch.arange(stamp, device=dev)
     gy = ayl[:, :, None, None] + o[None, None, :, None]        # (D, L, st, st)
     gx = axl[:, :, None, None] + o[None, None, None, :]
     flat = ((torch.arange(d_bins, device=dev)[:, None, None, None] * s + gy) * s + gx)
+    offs = torch.arange(n_tracers, device=dev) * (d_bins * s * s)
+    flat = flat[None] + offs[:, None, None, None, None]        # (T, D, L, st, st)
     return flat.reshape(-1), vals.reshape(-1, 3), n_emitted
 
 
@@ -394,11 +410,16 @@ def _mc_scatter_deposits(lights, field_textures, fields: RotatedFields,
     ForwardMonteCarlo.compute:68-86). Returns (flat_idx, values).
 
     exclude_analytic zeroes the photons of lights that the analytic phase
-    covers, so their direct light is not counted twice."""
-    if n_tracers != 1:
-        raise NotImplementedError("n_tracers>1 not ported yet")
+    covers, so their direct light is not counted twice.
+
+    n_tracers > 1: one emission of T * (n // T) photons partitioned into T
+    blocks (photon j belongs to tracer j // (n // T)); each is normalized by
+    its own ray count and deposits into its own bin block."""
     height, width = gbuffer.transmissibility.shape
-    l_idx, rays_per_light = assign_photons_to_lights(lights, n_photons)
+    d_bins, s = fields.n_bins, fields.size
+    n_per = n_photons // n_tracers
+    l_idx, rays_per_light = assign_photons_to_lights(lights, n_per)
+    l_idx = l_idx.repeat(n_tracers)
     pos, direction, energy, bounces = emit(
         lights, field_textures, l_idx, rays_per_light, generator,
         (height, width), 1.0, override_bounces, active_kinds=light_kinds)
@@ -406,7 +427,8 @@ def _mc_scatter_deposits(lights, field_textures, fields: RotatedFields,
     inject = bounces > 0
     if exclude_analytic:
         inject &= ~take_per_light(analytic_light_mask(lights, override_bounces), l_idx)
-    flat = _deposit_cells(fields, pos, direction)
+    tracer = torch.arange(n_per * n_tracers, device=pos.device) // n_per
+    flat = _deposit_cells(fields, pos, direction) + tracer * (d_bins * s * s)
     return flat, torch.where(inject[:, None], energy, 0.0)
 
 
@@ -426,34 +448,44 @@ def _bounce_chain_deposits(fields: RotatedFields, gbuffer: GBuffer,
     point lights only) and flown per bin; otherwise `emit` emits every light
     kind and every wave flies with arbitrary directions. The material lookup
     is a direct index (the JAX version's non-TPU branch).
+
+    n_tracers > 1: the k chains split into T blocks flown in the same batch
+    (cap = ceil(k / (D*T)) slots per tracer and bin when stratified, else
+    k // T photons per tracer); flight and scatter are tracer-blind, and the
+    tracer only offsets each deposit by tr*D*S*S. Each block is normalized by
+    its own emission count.
     """
-    if n_tracers != 1:
-        raise NotImplementedError("n_tracers>1 not ported yet")
     height, width = gbuffer.transmissibility.shape
-    d_bins = fields.n_bins
+    d_bins, s = fields.n_bins, fields.size
     dev = fields.trans.device
 
     material = torch.cat([gbuffer.normal, gbuffer.albedo[..., :3]], -1)
 
     wave0 = None
     if stratified:
-        cap = -(-k_photons // d_bins)
+        cap = -(-k_photons // (d_bins * n_tracers))
         l_of_slot, slots = assign_photons_to_lights(lights, cap)
+        l_of_slot = l_of_slot.repeat(n_tracers)
         pos, direction, energy, bounces = emit_point_stratified(
             lights, l_of_slot, slots, d_bins, fields.phase, generator,
             (height, width), 1.0, override_bounces)
         u_tp = torch.rand(bounces.shape, generator=generator, device=dev)
         wave0 = _flight_stratified(fields, pos, bounces > 0, u_tp)
-        m = d_bins * cap
+        m = d_bins * cap * n_tracers
         pos, direction, energy, bounces = (
             a.reshape((m,) + a.shape[2:]) for a in (pos, direction, energy, bounces))
         wave0 = tuple(a.reshape((m,) + a.shape[2:]) for a in wave0)
+        tracer = (torch.arange(cap * n_tracers, device=dev) // cap).repeat(d_bins)
     else:
-        l_idx, rays_per_light = assign_photons_to_lights(lights, k_photons)
+        k_per = k_photons // n_tracers
+        l_idx, rays_per_light = assign_photons_to_lights(lights, k_per)
         pos, direction, energy, bounces = emit(
-            lights, field_textures, l_idx, rays_per_light, generator,
-            (height, width), 1.0, override_bounces, active_kinds=light_kinds)
+            lights, field_textures, l_idx.repeat(n_tracers), rays_per_light,
+            generator, (height, width), 1.0, override_bounces,
+            active_kinds=light_kinds)
+        tracer = torch.arange(k_per * n_tracers, device=dev) // k_per
     m = pos.shape[0]
+    tracer_offset = tracer * (d_bins * s * s)
 
     dead = torch.zeros(m, dtype=torch.bool, device=dev)
     all_flat, all_vals = [], []
@@ -486,7 +518,7 @@ def _bounce_chain_deposits(fields: RotatedFields, gbuffer: GBuffer,
 
         # --- record the bounce deposit at the new position ---
         live_next = (~dead) & (wave + 1 < bounces)
-        all_flat.append(_deposit_cells(fields, pos, direction))
+        all_flat.append(_deposit_cells(fields, pos, direction) + tracer_offset)
         all_vals.append(torch.where(live_next[:, None], energy, 0.0))
     if not all_flat:
         return (torch.zeros(0, dtype=torch.long, device=dev),
@@ -508,7 +540,15 @@ def rbt_trace_frame(fields: RotatedFields, src_accum: tuple, gbuffer: GBuffer,
 
     Returns (src_accum, photons_emitted); src_accum is the per-channel
     source buffer tuple (3 x (n_tracers*D, S, S)). The lightmap itself is
-    produced by resolve_raw. The frame is two decoupled estimator phases:
+    produced by resolve_raw.
+
+    n_tracers > 1 is the native dual-tracer axis: n_photons and
+    bounce_photons are totals split into T independent tracer blocks traced
+    in one batch; a tracer only offsets a photon's deposit bin by tr*D in
+    the tracer-major source buffer, and each block is normalized by its own
+    ray count, so resolve_raw(tracer=t) is distributed like a separate
+    tracer with 1/T of the budget. The frame is two decoupled estimator
+    phases:
 
       1. DIRECT: all n photons' wave-0 deposits. analytic_direct injects
          the exact expectation of point lights that analytic_light_mask
@@ -547,8 +587,6 @@ def rbt_frame_deposits(fields: RotatedFields, gbuffer: GBuffer,
     phase deposits."""
     if exact_collimated:
         raise NotImplementedError("exact_collimated (_laser_direct_raw) not ported yet")
-    if n_tracers != 1:
-        raise NotImplementedError("n_tracers>1 not ported yet")
     height, width = gbuffer.transmissibility.shape
     pixel_count = float(width * height)
     n_emitted = n_photons
@@ -620,10 +658,15 @@ def resolve_raw(fields: RotatedFields, src_accum: tuple, height: int, width: int
 
 
 def rotate_back(fields: RotatedFields, deposited: torch.Tensor,
-                height: int, width: int) -> torch.Tensor:
+                height: int, width: int,
+                traced_phase: bool = False) -> torch.Tensor:
     """Dense reference rotate-back: sample every bin's (S, S, C) deposit map
     at the target pixels with a bilinear gather and sum over bins. Plain
-    PyTorch, used only by the tests as a second reference for resolve_raw."""
+    PyTorch, used only by the tests as a second reference for resolve_raw.
+
+    traced_phase has the JAX package's dense-path meaning, which is none:
+    fields.cos/sin already fold the phase in, so the result is the same
+    either way (the flag selects the traced-angle shears on the TPU path)."""
     s = fields.size
     dev = deposited.device
     ys, xs = torch.meshgrid(torch.arange(height, device=dev),

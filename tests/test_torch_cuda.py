@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from litbox_tpu_torch.ops import attnscan, rotate
+from litbox_tpu_torch.prof import rotfused
 from litbox_tpu_torch.sim import rbt
 
 pytestmark = pytest.mark.cuda
@@ -67,10 +68,10 @@ def test_shear_reduce_kernel_matches_plain(dev, groups, row_lo, row_hi):
     img = _rand(dev, 6, (24, 64, 64))
     coef = _rand(dev, 7, (24,), -0.5, 0.5)
     before = rotate.shear_reduce.launches
-    got = rotate.shear_reduce(img, coef, 1, 1, 64, row_lo, row_hi, groups)
+    got = rotate.shear_reduce(img, coef, 1, 1, 64, 0.5, row_lo, row_hi, groups)
     torch.cuda.synchronize()
     assert rotate.shear_reduce.launches == before + 1
-    ref = rotate.shear_reduce_plain(img, coef, 1, 1, 64, row_lo, row_hi, groups)
+    ref = rotate.shear_reduce_plain(img, coef, 1, 1, 64, 0.5, row_lo, row_hi, groups)
     assert got.shape == ref.shape
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
 
@@ -90,6 +91,28 @@ def test_rotate_planar_sum_fused_kernel_matches_plain(dev, s, d, delta):
         assert got.shape == ref.shape == (3, s, s)
         torch.testing.assert_close(got, ref, atol=2e-5 * float(ref.abs().max()),
                                    rtol=0)
+
+
+@pytest.mark.parametrize("name", ["copy_accum", "transpose2_accum",
+                                  "shear1_accum", "shear3_accum"])
+@pytest.mark.parametrize("n,s", [(6, 128), (9, 100), (24, 640)])
+def test_rotfused_split_kernel_matches_plain(dev, name, n, s):
+    """The four variants of the K4 cost split against their plain versions,
+    with S not a multiple of the 32-wide tiles (100) among the shapes. The
+    kernels sum the images in order, the plain versions in PyTorch's order:
+    held to 2e-5 of the largest magnitude."""
+    img = _rand(dev, 20, (n, s, s))
+    resid = _rand(dev, 21, (n,), -np.pi / 4, np.pi / 4)
+    coefs = {"shear1_accum": (-torch.tan(resid / 2),),
+             "shear3_accum": (-torch.tan(resid / 2), torch.sin(resid))}.get(name, ())
+    fn = getattr(rotfused, name)
+    before = fn.launches
+    got = fn(img, *coefs)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = getattr(rotfused, name + "_plain")(img, *coefs)
+    assert got.shape == ref.shape == (s, s)
+    torch.testing.assert_close(got, ref, atol=2e-5 * float(ref.abs().max()), rtol=0)
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):

@@ -9,6 +9,7 @@ distribution: the closed-form direct energy, and bounce energy means within
 deposit stream."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -268,6 +269,25 @@ def test_resolve_matches_jax_resolve_raw(jax_setup, jax_sources):
         assert np.abs(got - other).mean() < 0.01 * other.mean()
 
 
+def test_rotate_back_traced_phase_matches_jax(jax_setup):
+    """rotate_back(fields, deposited, height, width, traced_phase) by
+    position, on fields with a jitter phase of 0.3 bins: the JAX package's
+    dense rotate-back and the port's agree, with the flag set and not. The
+    JAX gather takes bf16 weights (ops/resample.py), so the images are held
+    to 1e-2 of their maximum and their sums to 1e-3."""
+    _, gb, _, _ = jax_setup
+    jf = jrbt.precompute_rotated_fields(gb, n_bins=N_BINS, phase=0.3)
+    dep = np.random.default_rng(9).uniform(
+        0, 1, (N_BINS, jf.size, jf.size, 3)).astype(np.float32)
+    pf = _to_port(jf)
+    for traced in (True, False):
+        ref = np.asarray(jax.jit(jrbt.rotate_back, static_argnums=(2, 3, 4))(
+            jf, jnp.asarray(dep), W, W, traced))
+        got = rbt.rotate_back(pf, torch.from_numpy(dep), W, W, traced).numpy()
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-2 * np.abs(ref).max())
+        np.testing.assert_allclose(got.sum(), ref.sum(), rtol=1e-3)
+
+
 def test_resolve_group_partition(port_setup, jax_sources):
     fields = port_setup[2]
     src = _to_port(jax_sources)
@@ -325,15 +345,9 @@ def test_frame_end_to_end_mean_energy(jax_setup, jax_sources, port_setup):
 
 
 @pytest.mark.parametrize("opts,phase", [
-    (dict(n_tracers=2), "n_tracers>1"),
     (dict(exact_collimated=True), "collimated"),
     (dict(analytic_direct=False, light_kinds=(1,), hist_direct=True,
-          n_tracers=2), "n_tracers>1"),
-    (dict(mc_direct=False, max_bounces=2, n_tracers=2), "n_tracers>1"),
-    (dict(analytic_direct=False, light_kinds=(1,), hist_direct=True,
           exact_collimated=True), "collimated"),
-    (dict(analytic_direct=True, mc_direct=False, max_bounces=1, n_tracers=2),
-     "n_tracers>1"),
 ])
 def test_unported_options_raise(port_setup, opts, phase):
     scene, gb, fields, brdf = port_setup
@@ -341,6 +355,64 @@ def test_unported_options_raise(port_setup, opts, phase):
         rbt.rbt_trace_frame(fields, rbt.zero_sources(fields), gb, scene.lights,
                             scene.field_textures, brdf,
                             torch.Generator().manual_seed(0), 1024, -1, **opts)
+
+
+def _tracer_energy(flat, vals, block: int, n_tracers: int = 2) -> np.ndarray:
+    """Per-tracer deposit energy (T,) of a deposit stream whose flat index
+    lies in the tracer-major (T*D*S*S) planes."""
+    flat = np.asarray(flat).astype(np.int64)
+    vals = np.asarray(vals, np.float64).sum(-1)
+    return np.bincount(flat // block, weights=vals, minlength=n_tracers)
+
+
+# The option sets of the n_tracers=2 cases that raised before the tracer
+# axis was ported: the JAX defaults, the stamp histogram with stratified
+# bounces, analytic direct with bounce chains, and analytic direct alone.
+PAIR_OPTS = [
+    dict(n_tracers=2),
+    dict(analytic_direct=False, light_kinds=(1,), hist_direct=True, n_tracers=2),
+    dict(mc_direct=False, max_bounces=2, n_tracers=2),
+    dict(analytic_direct=True, mc_direct=False, max_bounces=1, n_tracers=2),
+]
+
+
+@pytest.mark.parametrize("opts", PAIR_OPTS)
+def test_n_tracers_options_match_jax(jax_setup, port_setup, opts):
+    """rbt_frame_deposits(n_tracers=2) with each option set: the stream has
+    JAX's length and emitted count, every index lies in the (2D, S, S)
+    planes, and each tracer block's energy per frame agrees with JAX's in
+    distribution (means within 4 sigma of the difference over 5 seeds a
+    side). The analytic-only set is deterministic: held elementwise."""
+    n = 2048
+    block = N_BINS * 128 * 128
+    scene, gb, fields, brdf = jax_setup
+    jax_fn = functools.partial(
+        jrbt.rbt_frame_deposits, fields, gb, scene.lights, scene.field_textures,
+        brdf, n_photons=n, override_bounces=jnp.int32(-1), **opts)
+    pscene, pgb, pfields, pbrdf = port_setup
+    port_fn = functools.partial(
+        rbt.rbt_frame_deposits, pfields, pgb, pscene.lights,
+        pscene.field_textures, pbrdf, n_photons=n, override_bounces=-1, **opts)
+    jax_e, port_e = [], []
+    for seed in range(5):
+        jf, jv, jn = jax_fn(jax.random.key(200 + seed))
+        pf, pv, pn = port_fn(torch.Generator().manual_seed(200 + seed))
+        assert pf.shape == tuple(jf.shape) and pv.shape == tuple(jv.shape)
+        assert pn == int(jn)
+        assert int(pf.min()) >= 0 and int(pf.max()) < 2 * block
+        jax_e.append(_tracer_energy(jf, jv, block))
+        port_e.append(_tracer_energy(pf, pv, block))
+        if opts.get("max_bounces") == 1:
+            np.testing.assert_array_equal(pf.numpy(), np.asarray(jf))
+            np.testing.assert_allclose(pv.numpy(), np.asarray(jv), rtol=1e-5,
+                                       atol=1e-6 * float(np.abs(jv).max()))
+            return
+    jax_e, port_e = np.array(jax_e), np.array(port_e)
+    assert (port_e > 0).all() and (jax_e > 0).all()
+    for t in range(2):
+        sigma = np.sqrt(np.var(jax_e[:, t], ddof=1) / 5 + np.var(port_e[:, t], ddof=1) / 5)
+        diff = abs(jax_e[:, t].mean() - port_e[:, t].mean())
+        assert diff <= max(4 * sigma, 1e-5 * jax_e[:, t].mean()), (t, jax_e, port_e)
 
 
 @pytest.mark.parametrize("opts", [
@@ -360,3 +432,137 @@ def test_ported_options_run(port_setup, opts):
     total = sum(float(c.double().sum()) for c in src)
     assert n >= 1024 and total > 0
     assert all(bool(torch.isfinite(c).all()) and float(c.min()) >= 0 for c in src)
+
+
+def _pair_scene(builder_cls):
+    """tests/test_rbt.py's scene: a small point light in a uniform medium."""
+    b = builder_cls()
+    b.add_point_light((W / 2, W / 2), radius=0.5, color=(1, 1, 1), intensity=1.0,
+                      bounces=1)
+    b.add_rect((W / 2, W / 2), (W, W), color=(1, 1, 1, 1), log_density=-1.3)
+    return b
+
+
+@pytest.fixture(scope="module")
+def pair_setup():
+    """The JAX and the port setups of tests/test_rbt.py's native-tracer
+    tests (D=64)."""
+    scene = _pair_scene(JaxSceneBuilder).build(max_lights=2, max_shapes=2)
+    gb = jax_rasterize(scene, W, W)
+    fields = jrbt.precompute_rotated_fields(gb, n_bins=64)
+    brdf = jnp.asarray(luts.brdf_lut((32, 9, 4)))
+    pscene = _pair_scene(SceneBuilder).build(max_lights=2, max_shapes=2, device="cpu")
+    pgb = rasterize(pscene, W, W)
+    return ((scene, gb, brdf, fields),
+            (pscene, pgb, torch.from_numpy(np.array(brdf)),
+             rbt.precompute_rotated_fields(pgb, n_bins=64)))
+
+
+def test_pair_trace_blocks_are_independent_unbiased(pair_setup):
+    """tests/test_rbt.py's property on the port: rbt_trace_frame(n_tracers=2)
+    with a 2n budget gives two blocks, each distributed like a separate
+    n-photon tracer (totals within 5% of a single-tracer render, bright-region
+    means within 10%), that differ from each other; and each block's total
+    agrees with the JAX package's block within 5%."""
+    (jscene, jgb, jbrdf, jfields), (scene, gb, brdf, fields) = pair_setup
+    n, frames = 8192, 4
+    opts = dict(max_bounces=2, mc_direct=True, analytic_direct=False,
+                light_kinds=(1,), hist_direct=True, n_tracers=2)
+    gen = torch.Generator().manual_seed(11)
+    src2 = rbt.zero_sources(fields, n_tracers=2)
+    for _ in range(frames):
+        src2, n_emitted = rbt.rbt_trace_frame(
+            fields, src2, gb, scene.lights, scene.field_textures, brdf, gen,
+            2 * n, 2, **opts)
+    assert n_emitted == 2 * n
+    raw_a = rbt.resolve_raw(fields, src2, W, W, tracer=0).numpy() / frames
+    raw_b = rbt.resolve_raw(fields, src2, W, W, tracer=1).numpy() / frames
+    src = rbt.zero_sources(fields)
+    for _ in range(frames):
+        src, _ = rbt.rbt_trace_frame(fields, src, gb, scene.lights,
+                                     scene.field_textures, brdf, gen, n, 2,
+                                     max_bounces=2)
+    single = rbt.resolve_raw(fields, src, W, W).numpy() / frames
+    for raw_t in (raw_a, raw_b):
+        np.testing.assert_allclose(raw_t.sum(), single.sum(), rtol=0.05)
+    assert np.abs(raw_a - raw_b).max() > 0
+    mask = single > np.percentile(single, 90)
+    for raw_t in (raw_a, raw_b):
+        np.testing.assert_allclose(raw_t[mask].mean(), single[mask].mean(), rtol=0.1)
+
+    jsrc2 = jrbt.zero_sources(jfields, n_tracers=2)
+    for f in range(frames):
+        jsrc2, _ = jrbt.rbt_trace_frame(
+            jfields, jsrc2, jgb, jscene.lights, jscene.field_textures, jbrdf,
+            jax.random.fold_in(jax.random.key(11), f), 2 * n, jnp.int32(2), **opts)
+    for t, raw_t in ((0, raw_a), (1, raw_b)):
+        ref = np.asarray(jrbt.resolve_raw(jfields, jsrc2, W, W, tracer=t)) / frames
+        np.testing.assert_allclose(raw_t.sum(), ref.sum(), rtol=0.05)
+
+
+def test_pair_trace_analytic_and_generic_paths(pair_setup):
+    """tests/test_rbt.py's property on the port: n_tracers=2 with analytic
+    direct and the generic MC scatter; each block's source energy within 8%
+    of a single tracer's and of the JAX package's block."""
+    (jscene, jgb, jbrdf, jfields), (scene, gb, brdf, fields) = pair_setup
+    n = 4096
+    d = fields.n_bins
+    opts = dict(max_bounces=2, mc_direct=True, analytic_direct=True)
+    src2, _ = rbt.rbt_trace_frame(
+        fields, rbt.zero_sources(fields, n_tracers=2), gb, scene.lights,
+        scene.field_textures, brdf, torch.Generator().manual_seed(5), 2 * n, 2,
+        n_tracers=2, **opts)
+    src1, _ = rbt.rbt_trace_frame(
+        fields, rbt.zero_sources(fields), gb, scene.lights, scene.field_textures,
+        brdf, torch.Generator().manual_seed(6), n, 2, **opts)
+    jsrc2, _ = jrbt.rbt_trace_frame(
+        jfields, jrbt.zero_sources(jfields, n_tracers=2), jgb, jscene.lights,
+        jscene.field_textures, jbrdf, jax.random.key(5), 2 * n, jnp.int32(2),
+        n_tracers=2, **opts)
+    e_1 = sum(float(ch.double().sum()) for ch in src1)
+    for t in range(2):
+        e_t = sum(float(ch[t * d:(t + 1) * d].double().sum()) for ch in src2)
+        e_j = sum(float(np.asarray(ch[t * d:(t + 1) * d], np.float64).sum())
+                  for ch in jsrc2)
+        np.testing.assert_allclose(e_t, e_1, rtol=0.08)
+        np.testing.assert_allclose(e_t, e_j, rtol=0.08)
+
+
+def test_entry_frame_in_distribution():
+    """__graft_entry__.entry()'s frame (64^2, D=32, 4,096 photons, the
+    default trace options, 2 bounces, resolve, HDR) through the port, on the
+    JAX scene carried across: the HDR's total energy over 8 seeds, JAX and
+    port means within 4 sigma. Off the TPU the JAX resolve is a dense
+    bilinear rotate (another interpolation than the port's shears), so the
+    JAX sources are resolved by the port for the comparison; entry()'s own
+    HDR on the first seed is held to that within 2%."""
+    import __graft_entry__
+
+    fn, (fields, src0, gb, lights, ftex, brdf, _) = __graft_entry__.entry()
+    w = gb.width
+    jtrace = jax.jit(lambda key: jrbt.rbt_trace_frame(
+        fields, src0, gb, lights, ftex, brdf, key, 4096, jnp.int32(-1),
+        max_bounces=2)[0])
+    pf, pgb, plights, pftex = (_to_port(x) for x in (fields, gb, lights, ftex))
+    pbrdf = torch.from_numpy(np.array(brdf))
+
+    def port_hdr(src):
+        return to_hdr(rbt.resolve_raw(pf, src, w, w), 1.0, pgb)
+
+    jax_e, port_e = [], []
+    for seed in range(8):
+        src = _to_port(jtrace(jax.random.key(seed)))
+        jax_e.append(float(port_hdr(src).double().sum()))
+        if seed == 0:
+            ref = np.asarray(jax.jit(fn)(fields, src0, gb, lights, ftex, brdf,
+                                         jax.random.key(seed)), np.float64)
+            assert abs(ref.sum() / jax_e[0] - 1) < 0.02
+        psrc, _ = rbt.rbt_trace_frame(pf, rbt.zero_sources(pf), pgb, plights, pftex,
+                                      pbrdf, torch.Generator().manual_seed(seed),
+                                      4096, -1, max_bounces=2)
+        hdr = port_hdr(psrc)
+        assert hdr.shape == (w, w, 3) and bool(torch.isfinite(hdr).all())
+        assert float(hdr.min()) >= 0
+        port_e.append(float(hdr.double().sum()))
+    sigma = np.sqrt(np.var(jax_e, ddof=1) / 8 + np.var(port_e, ddof=1) / 8)
+    assert abs(np.mean(jax_e) - np.mean(port_e)) < 4 * sigma, (jax_e, port_e)

@@ -73,7 +73,7 @@ def test_shear_reduce_matches_pallas(groups, row_lo, row_hi):
     ref = jrot.shear_reduce(jnp.asarray(img), jnp.asarray(coef), 1, 1, S,
                             ALPHA_BOUND, row_lo, row_hi, groups=groups)
     got = trot.shear_reduce(torch.from_numpy(img), torch.from_numpy(coef), 1,
-                            1, S, row_lo, row_hi, groups=groups)
+                            1, S, ALPHA_BOUND, row_lo, row_hi, groups=groups)
     assert got.shape == np.asarray(ref).shape
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
 
@@ -105,8 +105,8 @@ def test_rotate_planar_sum_matches_pallas(delta_frac):
                                     dict(row_lo=40, row_hi=40),
                                     dict(groups=3)])
 def test_shear_reduce_rejects_bad_arguments(kwargs):
-    args = dict(row_div=1, elem_scale=1, n_texels=S, row_lo=0, row_hi=S,
-                groups=2)
+    args = dict(row_div=1, elem_scale=1, n_texels=S, coef_bound=ALPHA_BOUND,
+                row_lo=0, row_hi=S, groups=2)
     args.update(kwargs)
     with pytest.raises(ValueError):
         trot.shear_reduce(torch.zeros(D, S, S), torch.zeros(D), **args)
@@ -166,3 +166,56 @@ def test_rotate_planar_sum_fused_conserves_mass_like_pipeline():
     fused = trot.rotate_planar_sum_fused(chans, base, 0.0)[:, 16:112].numpy()
     assert abs(fused.sum() / pipe.sum() - 1) < 1e-3
     assert np.abs(fused - pipe).mean() < 0.02 * pipe.mean()
+
+
+def test_shear_functions_take_jax_positional_arguments():
+    """shear(img, coef, row_div, elem_scale, n_texels, coef_bound) and
+    shear_reduce(img, coef, row_div, elem_scale, n_texels, coef_bound,
+    row_lo, row_hi, groups) by position, as the JAX functions take them:
+    the same shape and values as the Pallas versions (interpreted). The
+    shear_reduce case is (384, 256, 256), rows [64, 128), one group."""
+    img = _rand(50, (384, 256, 256))
+    coef = _rand(51, (384,), -0.9, 0.9)
+    args = (1, 1, 256, 1.0, 64, 128)
+    ref = np.asarray(jrot.shear_reduce(jnp.asarray(img), jnp.asarray(coef), *args))
+    got = trot.shear_reduce(torch.from_numpy(img), torch.from_numpy(coef), *args)
+    assert got.shape == ref.shape == (64, 256)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5 * np.abs(ref).max(), rtol=0)
+    img, coef = img[:8, :64, :], coef[:8]
+    args = (1, 1, 256, 1.0)
+    ref = np.asarray(jrot.shear(jnp.asarray(img), jnp.asarray(coef), *args))
+    got = trot.shear(torch.from_numpy(img), torch.from_numpy(coef), *args)
+    assert got.shape == ref.shape == (8, 64, 256)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["copy_accum", "transpose2_accum",
+                                  "shear1_accum", "shear3_accum"])
+def test_rotfused_split_matches_jax(name):
+    """The four variants of the K4 cost split (runs/prof_rotfused.py) at
+    (6, 128, 128), against the JAX package's operations they stand for: the
+    sum, swapaxes twice, and the Pallas shear (interpreted) once or three
+    times with the bound of the script's residual angles (|alpha| <= tan(pi/8),
+    |beta| <= sin(pi/4)). Sums of 6 images: to 1e-5 of the maximum."""
+    from litbox_tpu_torch.prof import rotfused
+
+    n, s = 6, 128
+    img = _rand(60, (n, s, s))
+    resid = (_rand(61, (n,)) - 0.5) * (np.pi / 2)
+    alpha = (-np.tan(resid / 2)).astype(np.float32)
+    beta = np.sin(resid).astype(np.float32)
+    x, ja, jb = jnp.asarray(img), jnp.asarray(alpha), jnp.asarray(beta)
+    if name == "copy_accum":
+        ref, args = x.sum(0), ()
+    elif name == "transpose2_accum":
+        ref, args = jnp.swapaxes(jnp.swapaxes(x, 1, 2), 1, 2).sum(0), ()
+    elif name == "shear1_accum":
+        ref, args = jrot.shear(x, ja, 1, 1, s, ALPHA_BOUND).sum(0), (alpha,)
+    else:
+        t = jrot.shear(x, ja, 1, 1, s, ALPHA_BOUND)
+        t = jrot.shear(t, jb, 1, 1, s, BETA_BOUND)
+        ref, args = jrot.shear(t, ja, 1, 1, s, ALPHA_BOUND).sum(0), (alpha, beta)
+    ref = np.asarray(ref)
+    got = getattr(rotfused, name)(torch.from_numpy(img), *map(torch.from_numpy, args))
+    assert got.shape == ref.shape == (s, s)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())

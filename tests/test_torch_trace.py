@@ -144,6 +144,18 @@ def test_emit_matches_on_jax_uniforms(jax_setup, port_setup, kinds):
         np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("n,interleave", [(2000, 4), (2003, 8), (64, 1)])
+def test_assign_photons_interleave_matches(jax_setup, port_setup, n, interleave):
+    """assign_photons_to_lights(lights, n, interleave) in the JAX order,
+    a ragged tail included (n not a multiple of interleave)."""
+    l_idx, rays = jemission.assign_photons_to_lights(jax_setup[0].lights, n,
+                                                     interleave)
+    p_idx, p_rays = emission.assign_photons_to_lights(port_setup[0].lights, n,
+                                                      interleave)
+    np.testing.assert_array_equal(p_idx.numpy(), np.asarray(l_idx))
+    np.testing.assert_array_equal(p_rays.numpy(), np.asarray(rays))
+
+
 def _brdf_inputs(seed, n=3000):
     rng = np.random.default_rng(seed)
     ang = rng.uniform(0, 2 * np.pi, n)
