@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from litbox_tpu_torch/csrc (one nvcc call)
-and runs six phases, each printed with its wall seconds:
+and runs seven phases, each printed with its wall seconds:
 
 - kernels: each kernel (K1 scan, K2 shear, K3 shear_reduce, K4 fused
   rotate-and-sum) held against its plain PyTorch version at the shapes of
@@ -36,6 +36,15 @@ and runs six phases, each printed with its wall seconds:
   K4 itself, timed at (384, 640, 640) and at the frame's group shape
   (24, 640, 640) beside their byte bounds, then each held against its
   plain version.
+- microops: the five data movements of runs/prof_microops.py (transpose,
+  double transpose, row roll, column roll, flip;
+  litbox_tpu_torch/prof/microops.py) at the script's (64, 640, 640), the
+  pipeline's resolve (384, 640, 640) and the frame's group (24, 640, 640),
+  from a flushed L2, beside their byte bounds and the library call that
+  computes the same function (torch.roll for the rolls, with a uniform
+  shift), each held against its plain version bit for bit; then
+  resolve_raw's steps timed one by one at the pipeline's and the group's
+  shape, its rot90/cat and transpose copies beside the B5 kernels.
 
 Every kernel counter is set to 0 just before a path is driven and read just
 after; a kernel of the path that was not launched, or any failed check,
@@ -72,7 +81,7 @@ from litbox_tpu_torch.core.types import REALTIME_1080P
 from litbox_tpu_torch.engine import pipeline, realtime
 from litbox_tpu_torch.nn.unet import LitboxDenoiserNet
 from litbox_tpu_torch.ops import attnscan, cuda_lib, rotate
-from litbox_tpu_torch.prof import rotfused
+from litbox_tpu_torch.prof import microops, rotfused
 from litbox_tpu_torch.scene import SceneBuilder, rasterize
 from litbox_tpu_torch.sim import rbt
 from litbox_tpu_torch.sim.oracle import to_hdr
@@ -110,10 +119,18 @@ SPLIT = ("copy_accum", "transpose2_accum", "shear1_accum", "shear3_accum")
 for _name in SPLIT:
     KERNELS[_name] = dict(source="litbox_tpu_torch/csrc/prof_rotfused.cu",
                           replaces="runs/prof_rotfused.py:38", tol=2e-5)
+# runs/prof_microops.py's data movements, each at its pallas_call's line:
+# pure movement (and a doubling), so kernel and plain agree bit for bit.
+MICROOPS = {"transpose": 55, "transpose2": 72, "roll_rows": 95, "roll_cols": 119,
+            "flip2": 145}
+for _name, _line in MICROOPS.items():
+    KERNELS[_name] = dict(source="litbox_tpu_torch/csrc/prof_microops.cu",
+                          replaces=f"runs/prof_microops.py:{_line}", tol=0.0)
 COUNTERS = {"attenuation_scan_rows": attnscan.attenuation_scan_rows,
             "shear": rotate.shear, "shear_reduce": rotate.shear_reduce,
             "rotate_planar_sum_fused": rotate.rotate_planar_sum_fused,
-            **{name: getattr(rotfused, name) for name in SPLIT}}
+            **{name: getattr(rotfused, name) for name in SPLIT},
+            **{name: getattr(microops, name) for name in MICROOPS}}
 # Operations per image and output texel of the fused rotation: 7 two-tap
 # lerps (3 each) and 7 shift evaluations (4 each), csrc/rotfused.cu.
 ROT3_OPS = 49
@@ -1004,6 +1021,170 @@ def rotfused_split_phase() -> tuple[dict, dict]:
     return launches, cases
 
 
+# The microops shapes: runs/prof_microops.py's (N, S), the pipeline's resolve
+# (3 channels x 128 bins) and the shipped frame's group (3 x 8 bins).
+MICRO_SHAPES = ((64, 640), (3 * N_BINS, 640),
+                (3 * N_BINS // REALTIME_1080P.resolve_groups, 640))
+# The one PyTorch call that computes each non-roll function.
+MICRO_LIBRARY = {"transpose": ("x.transpose(1, 2).contiguous()",
+                               lambda x: x.transpose(1, 2).contiguous()),
+                 "transpose2": ("torch.mul(x, 2.0)", lambda x: torch.mul(x, 2.0)),
+                 "flip2": ("torch.flip(x, (1, 2))", lambda x: torch.flip(x, (1, 2)))}
+# The rolls with per-image shifts have no one-call equivalent; timed again
+# with every shift equal to this, beside torch.roll.
+UNIFORM_SHIFT = 213
+
+
+def _micro_args(name: str, x, shifts) -> tuple:
+    return (x, shifts) if name.startswith("roll") else (x,)
+
+
+def microops_phase() -> tuple[dict, dict]:
+    """runs/prof_microops.py on the card: the five data movements timed at
+    MICRO_SHAPES from device memory (an L2 flush before each timed call),
+    with the script's shifts arange(N), beside their byte bounds; the rolls
+    again with a uniform shift beside torch.roll. Then each is held against
+    its plain version bit for bit, with those shifts and with shifts from
+    -3S past N*S (negative and >= S), and beside its library call. Returns
+    (launches, per-kernel cases)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    reset_counts()
+    cases = {name: [] for name in MICROOPS}
+    inputs = []
+    for n, s in MICRO_SHAPES:
+        x = torch.rand((n, s, s), generator=gen, device="cuda")
+        shifts = torch.arange(n, dtype=torch.int32, device="cuda")
+        uniform = torch.full((n,), UNIFORM_SHIFT, dtype=torch.int32, device="cuda")
+        for name in MICROOPS:
+            fn = getattr(microops, name)
+            args = _micro_args(name, x, shifts)
+            ms = time_ms(lambda: fn(*args), cold=True)
+            # transpose2's doubling: one operation a texel.
+            b, by = bound(2 * 4 * n * s * s, n * s * s if name == "transpose2" else 0)
+            c = dict(shape=f"({n},{s},{s})", ms=ms, us_per_image=ms * 1e3 / n,
+                     bound_ms=b, bound_by=by, bound_share=b / ms)
+            if name.startswith("roll"):
+                c["uniform_shift"] = dict(
+                    shift=UNIFORM_SHIFT, ms=time_ms(lambda: fn(x, uniform), cold=True))
+            cases[name].append(c)
+        inputs.append((x, shifts, uniform))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for i, (x, shifts, uniform) in enumerate(inputs):
+        n, s = x.shape[0], x.shape[1]
+        wild = torch.arange(n, dtype=torch.int32, device="cuda") * 97 - 3 * s
+        for name in MICROOPS:
+            fn, plain = getattr(microops, name), getattr(microops, name + "_plain")
+            args = _micro_args(name, x, shifts)
+            c = cases[name][i]
+            c.update(compare(name, fn(*args), plain(*args)),
+                     plain_ms=time_ms(lambda: plain(*args), reps=3, warmup=1, cold=True))
+            if name.startswith("roll"):
+                c["wild_shifts"] = dict(
+                    lo=int(wild[0]), hi=int(wild[-1]),
+                    **compare(name, fn(x, wild), plain(x, wild)))
+                dims = 1 if name == "roll_rows" else 2
+                library = lambda: torch.roll(x, UNIFORM_SHIFT, dims=dims)
+                err = float((fn(x, uniform) - library()).abs().max())
+                if err:
+                    raise AssertionError(f"{name} vs torch.roll: max_abs_err {err}")
+                c["uniform_shift"].update(library=f"torch.roll(x, k, dims={dims})",
+                                          library_ms=time_ms(library, cold=True),
+                                          library_max_abs_err=err)
+                c.update(library=None, library_ms=None)
+            else:
+                label, lib = MICRO_LIBRARY[name]
+                err = float((fn(x) - lib(x)).abs().max())
+                if err:
+                    raise AssertionError(f"{name} vs {label}: max_abs_err {err}")
+                c.update(library=label, library_ms=time_ms(lambda: lib(x), cold=True),
+                         library_max_abs_err=err)
+    del inputs
+    torch.cuda.empty_cache()
+    return launches, cases
+
+
+def resolve_copies(gen, n_groups: int) -> dict:
+    """resolve_raw's steps timed one by one (device time, L2 flushed) on
+    random fields and one-tracer sources at S=640, D=N_BINS, resolving
+    group 3 % n_groups of n_groups: the scan, the quadrant rot90/cat
+    (litbox_tpu_torch/ops/rotate.py:219-221), the two shears, the two
+    transpose(1, 2).contiguous() (:227, :229), shear_reduce and the final
+    crop + movedim (sim/rbt.py:656-657), each copy beside the B5 kernel
+    that does the same movement on the same images, and the whole
+    resolve_raw (device time, and host time to issue it)."""
+    prof, d, s = REALTIME_1080P, N_BINS, 640
+    height, width = prof.sim_height, prof.sim_width
+    group = 3 % n_groups
+    ang = torch.arange(d, dtype=torch.float32, device="cuda") * (-2 * np.pi / d)
+    fields = rbt.RotatedFields(
+        cos=torch.cos(ang), sin=torch.sin(ang),
+        trans=torch.rand((d, s, s), generator=gen, device="cuda") * 0.2 + 0.8,
+        cum_log=torch.zeros((d, s, s), device="cuda"),
+        cum_coarse=torch.zeros((d, s, s // 16), device="cuda"),
+        center=torch.tensor([width / 2.0, height / 2.0], device="cuda"),
+        phase=torch.zeros((), device="cuda"))
+    src = tuple(torch.rand((d, s, s), generator=gen, device="cuda") for _ in range(3))
+    resolve = lambda: rbt.resolve_raw(fields, src, height, width, group=group,
+                                      n_groups=n_groups)
+    # The steps as rotate_planar_sum issues them (delta 0, rows [lo, hi)).
+    scan = lambda: attnscan.attenuation_scan_rows(fields.trans, *src, group=group,
+                                                  n_groups=n_groups)
+    dep = scan()
+    base = tuple(-i * 2.0 * np.pi / d for i in range(group, d, n_groups))
+    runs = rotate._quadrant_groups(base)
+    cat = lambda: torch.cat([torch.rot90(ch[a:b], k, dims=(1, 2)) if k else ch[a:b]
+                             for ch in dep for a, b, k in runs], dim=0)
+    pre = cat()
+    residual = rotate._residuals(base, 0.0, "cuda")
+    alpha = (-torch.tan(residual / 2.0)).repeat(3)
+    beta = torch.sin(residual).repeat(3)
+    shear_a = lambda: rotate.shear(pre, alpha, 1, 1, s)
+    flat = shear_a()
+    transpose1 = lambda: flat.transpose(1, 2).contiguous()
+    flat_t = transpose1()
+    shear_b = lambda: rotate.shear(flat_t, beta, 1, 1, s)
+    t = shear_b()
+    transpose2 = lambda: t.transpose(1, 2).contiguous()
+    flat2 = transpose2()
+    oy, ox = (s - height) // 2, (s - width) // 2
+    lo, hi = (oy // 64) * 64, min(-(-(oy + height) // 64) * 64, s)
+    reduce = lambda: rotate.shear_reduce(flat2, alpha, 1, 1, s, rotate.ALPHA_BOUND,
+                                         lo, hi, 3)
+    out = reduce()
+    crop = lambda: out[:, oy - lo:oy - lo + height, ox:ox + width].movedim(0, -1).contiguous()
+    err = float((crop() - resolve()).abs().max())
+    if err:
+        raise AssertionError(f"resolve_raw's steps vs resolve_raw: max_abs_err {err}")
+    step = lambda fn: time_ms(fn, cold=True)
+    steps = dict(scan=step(scan), rot90_cat=step(cat), shear_1=step(shear_a),
+                 transpose_227=step(transpose1),
+                 shear_2=step(shear_b),
+                 transpose_229=step(transpose2), shear_reduce=step(reduce),
+                 crop_movedim=step(crop))
+    copies = ("rot90_cat", "transpose_227", "transpose_229", "crop_movedim")
+    resolve_ms = step(resolve)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        h = time.perf_counter()
+        resolve()
+        host.append((time.perf_counter() - h) * 1e3)
+    torch.cuda.synchronize()
+    images = pre.shape[0]
+    return dict(
+        shape=f"3x({d // n_groups},{s},{s}) group {group}/{n_groups}, out {height}x{width}",
+        quadrant_runs=[[b - a, k] for a, b, k in runs],
+        step_ms=steps, copies_ms=sum(steps[k] for k in copies),
+        steps_sum_ms=sum(steps.values()), resolve_raw_ms=resolve_ms,
+        resolve_raw_host_issue_ms=statistics.median(host),
+        copy_bound_ms=bound(2 * 4 * images * s * s, 0)[0],
+        b5_beside=dict(flip2_ms=step(lambda: microops.flip2(pre)),
+                       transpose_ms=step(lambda: microops.transpose(flat)),
+                       images=images),
+        steps_vs_resolve_raw_max_abs_err=err)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the card only")
@@ -1059,14 +1240,28 @@ def main() -> None:
     if missing := unlaunched(split_launches, SPLIT + ("rotate_planar_sum_fused",)):
         raise AssertionError(f"kernels of the split were not launched: {missing}")
 
+    t0 = time.perf_counter()
+    micro_launches, micro = microops_phase()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    copies = {"pipeline": resolve_copies(gen, 1),
+              "group": resolve_copies(gen, REALTIME_1080P.resolve_groups)}
+    torch.cuda.empty_cache()
+    phase("microops", t0)
+    print(json.dumps({"microops": dict(launches=micro_launches, cases=micro,
+                                       resolve_copies=copies)}))
+    measured.update(micro)
+    if missing := unlaunched(micro_launches, MICROOPS):
+        raise AssertionError(f"kernels of the microops were not launched: {missing}")
+
     # launches: the count on the path that drives each kernel, the shipped
-    # frame for K1-K3, the fused resolve for K4 and the split for V1-V4;
-    # every path's counts beside it.
+    # frame for K1-K3, the fused resolve for K4, the split for V1-V4 and the
+    # microops phase for B5's five; every path's counts beside it.
     paths = {"bench_frame": frame["launches"], "pipeline": pipe["launches"],
              "fused_resolve": fused["launches"], "production": prod["launches"],
-             "rotfused_split": split_launches}
+             "rotfused_split": split_launches, "microops": micro_launches}
     drives = {"rotate_planar_sum_fused": "fused_resolve",
-              **{name: "rotfused_split" for name in SPLIT}}
+              **{name: "rotfused_split" for name in SPLIT},
+              **{name: "microops" for name in MICROOPS}}
     rows = []
     for kname, cases in measured.items():
         path = drives.get(kname, "production")

@@ -41,6 +41,11 @@ _SIGNATURES = {
     "litbox_prof_transpose2_accum": [_P] * 3 + [_I] * 2 + [_P],
     "litbox_prof_shear1_accum": [_P] * 3 + [_I] * 2 + [_P],
     "litbox_prof_shear3_accum": [_P] * 4 + [_I] * 2 + [_P],
+    "litbox_prof_transpose": [_P] * 2 + [_I] * 2 + [_P],
+    "litbox_prof_transpose2": [_P] * 2 + [_I] * 2 + [_P],
+    "litbox_prof_roll_rows": [_P] * 3 + [_I] * 2 + [_P],
+    "litbox_prof_roll_cols": [_P] * 3 + [_I] * 2 + [_P],
+    "litbox_prof_flip2": [_P] * 2 + [_I] * 2 + [_P],
 }
 
 

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from litbox_tpu_torch.ops import attnscan, rotate
-from litbox_tpu_torch.prof import rotfused
+from litbox_tpu_torch.prof import microops, rotfused
 from litbox_tpu_torch.sim import rbt
 
 pytestmark = pytest.mark.cuda
@@ -115,6 +115,26 @@ def test_rotfused_split_kernel_matches_plain(dev, name, n, s):
     torch.testing.assert_close(got, ref, atol=2e-5 * float(ref.abs().max()), rtol=0)
 
 
+@pytest.mark.parametrize("name", ["transpose", "transpose2", "roll_rows",
+                                  "roll_cols", "flip2"])
+@pytest.mark.parametrize("n,s", [(6, 128), (9, 100), (24, 640)])
+def test_microops_kernel_matches_plain(dev, name, n, s):
+    """The five data-movement kernels (runs/prof_microops.py's) against their
+    plain versions, bit for bit: S = 100 leaves partial 32-wide tiles, and
+    the roll shifts run from -3S to 3S (negative and >= S among them)."""
+    x = _rand(dev, 22, (n, s, s))
+    shifts = np.random.default_rng(23).integers(-3 * s, 3 * s, n).astype(np.int32)
+    args = (torch.from_numpy(shifts).to(dev),) if name.startswith("roll") else ()
+    fn = getattr(microops, name)
+    before = fn.launches
+    got = fn(x, *args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = getattr(microops, name + "_plain")(x, *args)
+    assert got.shape == ref.shape == (n, s, s)
+    assert torch.equal(got, ref)
+
+
 def test_wrappers_raise_instead_of_falling_back(dev):
     img = _rand(dev, 8, (4, 16, 16))
     coef = torch.zeros(4, device=dev)
@@ -126,6 +146,17 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         rotate.shear(img, coef.cpu(), 1, 1, 16)             # mixed devices
     with pytest.raises(ValueError):                         # not contiguous
         rotate.rotate_planar_sum_fused((img.transpose(1, 2),) * 3, (0.0,) * 4, 0.0)
+    shifts = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                         # not contiguous
+        microops.transpose(img.transpose(1, 2))
+    with pytest.raises(TypeError):
+        microops.flip2(img.double())
+    with pytest.raises(ValueError):                         # shifts on the CPU
+        microops.roll_rows(img, shifts.cpu())
+    with pytest.raises(TypeError):
+        microops.roll_cols(img, shifts.long())
+    with pytest.raises(ValueError):
+        microops.roll_rows(img, shifts[:3])
 
 
 def test_resolve_on_card_matches_cpu(dev):
