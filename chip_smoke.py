@@ -35,14 +35,17 @@ and runs seven phases, each printed with its wall seconds:
   litbox_tpu_torch/prof/rotfused.py, runs/prof_rotfused.py's kernels) and
   K4 itself, timed at (384, 640, 640) and at the frame's group shape
   (24, 640, 640) beside their byte bounds, then each held against its
-  plain version.
+  plain version, and V2 held equal to V1 bit for bit (both add the images
+  in order); V1 and V2 beside torch.sum, with their library_ratio (kernel
+  ms / library ms).
 - microops: the five data movements of runs/prof_microops.py (transpose,
   double transpose, row roll, column roll, flip;
   litbox_tpu_torch/prof/microops.py) at the script's (64, 640, 640), the
   pipeline's resolve (384, 640, 640) and the frame's group (24, 640, 640),
   from a flushed L2, beside their byte bounds and the library call that
   computes the same function (torch.roll for the rolls, with a uniform
-  shift), each held against its plain version bit for bit; then
+  shift) and the ratio of the two times (library_ratio), each held
+  against its plain version bit for bit; then
   resolve_raw's steps timed one by one at the pipeline's and the group's
   shape, its rot90/cat and transpose copies beside the B5 kernels.
 
@@ -1003,19 +1006,28 @@ def rotfused_split_phase() -> tuple[dict, dict]:
     for i, (img, args, chans, base) in enumerate(inputs):
         sum_ms = time_ms(lambda: torch.sum(img, 0), cold=True)
         for name in SPLIT:
-            library = (dict(library_ms=sum_ms, library="torch.sum")
+            library = (dict(library_ms=sum_ms, library="torch.sum",
+                            library_ratio=cases[name][i]["ms"] / sum_ms)
                        if name in ("copy_accum", "transpose2_accum")
-                       else dict(library_ms=None, library=None))
+                       else dict(library_ms=None, library=None, library_ratio=None))
             fn, plain = getattr(rotfused, name), getattr(rotfused, name + "_plain")
             c = cases[name][i]
             c.update(compare(name, fn(*args[name]), plain(*args[name])),
                      plain_ms=time_ms(lambda: plain(*args[name]), reps=3, warmup=1),
                      **library)
+        # V2 adds the images in V1's order: the two must agree bit for bit.
+        v1, v2 = rotfused.copy_accum(img), rotfused.transpose2_accum(img)
+        if not torch.equal(v1, v2):
+            raise AssertionError(
+                f"transpose2_accum differs from copy_accum at {tuple(img.shape)}: "
+                f"max_abs_err {float((v1 - v2).abs().max())}")
+        cases["transpose2_accum"][i]["equals_copy_accum"] = True
         plain = lambda: rotate.rotate_planar_sum_fused_plain(chans, base, 0.0)
         cases["rotate_planar_sum_fused"][i].update(
             compare("rotate_planar_sum_fused",
                     rotate.rotate_planar_sum_fused(chans, base, 0.0), plain()),
-            plain_ms=time_ms(plain, reps=3, warmup=1), library_ms=None)
+            plain_ms=time_ms(plain, reps=3, warmup=1), library_ms=None,
+            library_ratio=None)
     del inputs
     torch.cuda.empty_cache()
     return launches, cases
@@ -1088,16 +1100,18 @@ def microops_phase() -> tuple[dict, dict]:
                 err = float((fn(x, uniform) - library()).abs().max())
                 if err:
                     raise AssertionError(f"{name} vs torch.roll: max_abs_err {err}")
-                c["uniform_shift"].update(library=f"torch.roll(x, k, dims={dims})",
-                                          library_ms=time_ms(library, cold=True),
-                                          library_max_abs_err=err)
-                c.update(library=None, library_ms=None)
+                u = c["uniform_shift"]
+                u.update(library=f"torch.roll(x, k, dims={dims})",
+                         library_ms=time_ms(library, cold=True), library_max_abs_err=err)
+                u["library_ratio"] = u["ms"] / u["library_ms"]
+                c.update(library=None, library_ms=None, library_ratio=None)
             else:
                 label, lib = MICRO_LIBRARY[name]
                 err = float((fn(x) - lib(x)).abs().max())
                 if err:
                     raise AssertionError(f"{name} vs {label}: max_abs_err {err}")
-                c.update(library=label, library_ms=time_ms(lambda: lib(x), cold=True),
+                lib_ms = time_ms(lambda: lib(x), cold=True)
+                c.update(library=label, library_ms=lib_ms, library_ratio=c["ms"] / lib_ms,
                          library_max_abs_err=err)
     del inputs
     torch.cuda.empty_cache()

@@ -6,7 +6,8 @@
 // step there):
 //   transpose  (:55,  k_transpose)   out[d] = x[d]^T
 //   transpose2 (:72,  k_transpose2)  out[d] = ((x[d]^T) * 2)^T, through two
-//                                    transposes (= 2 * x[d], exactly)
+//                                    transposes kept on chip (= 2 * x[d],
+//                                    exactly)
 //   roll_rows  (:95,  k_subroll)     out[d][y][x] = x[d][(y - sh) mod S][x]
 //   roll_cols  (:119, k_laneroll)    out[d][y][x] = x[d][y][(x - sh) mod S]
 //   flip2      (:145, k_flip)        out[d][y][x] = x[d][S-1-y][S-1-x]
@@ -23,11 +24,21 @@
 //   transpose: one block per 32x32 tile and image, a 32x33 shared tile (the
 //     pad column keeps the transposed read free of bank conflicts); the
 //     warps read rows of the input and write rows of the output, coalesced.
-//   transpose2: one block per tile and image. The tile is read once into
-//     shared memory, transposed into a second shared tile while it is
-//     scaled by 2, and read back transposed into the output's tile at its
-//     own position: two in-shared-memory transposes, one pass through
-//     device memory.
+//   transpose2: one block per 32x32 tile and image, as transpose. The tile
+//     arrives by one 16-byte cp.async copy a thread (no registers on the
+//     way) in a shared stage XOR-swizzled at float4 granularity
+//     (tile_ring.cuh), so the copies land, and the first transpose reads
+//     them, free of bank conflicts; it is transposed into a 32x33 shared
+//     tile while scaled by 2 and read back transposed into one 16-byte
+//     store a thread: two in-shared-memory transposes, one pass through
+//     device memory. Eight blocks resident an SM (8.3 KB of shared memory
+//     each) keep eight tiles' copies in flight while the others transpose:
+//     the block scheduler overlaps one tile's load with another's work.
+//     What bounds it is the memory's rate for this access pattern (32 rows
+//     of 128 bytes a tile). Designs that overlap inside a block, a cp.async
+//     ring over 2-8 images or 2 tiles a block, moved the same bytes slower
+//     on an H100 80GB HBM3 at 700 W. Rows that are not 16-byte aligned
+//     (S % 4 != 0) take 4-byte copies and stores.
 //   roll_rows, roll_cols, flip2: eight output texels a thread, 256 apart,
 //     the image from blockIdx.y; all eight loads are issued before the
 //     stores, so enough bytes are in flight to cover the memory's latency
@@ -37,6 +48,8 @@
 //     so both sides are coalesced except at the roll's wrap.
 
 #include <cuda_runtime.h>
+
+#include "tile_ring.cuh"
 
 namespace {
 
@@ -64,24 +77,45 @@ transpose_kernel(const float* __restrict__ in, float* __restrict__ out, int s) {
   }
 }
 
+// One block per 32x32 tile and image, as for transpose. The tile arrives by
+// cp.async in a swizzled stage `a` (tile_ring.cuh), is transposed into `b`
+// while scaled by 2, and `b` is read back transposed into the output tile at
+// its own position: two transposes in shared memory, each behind a
+// __syncthreads.
+template <bool kVec>
 __global__ void __launch_bounds__(kTile * kRows)
 transpose2_kernel(const float* __restrict__ in, float* __restrict__ out, int s) {
-  __shared__ float a[kTile][kTile + 1];  // the tile as read
-  __shared__ float b[kTile][kTile + 1];  // its transpose, scaled
+  __shared__ __align__(16) float a[litbox::kRingTileFloats];  // the tile as read
+  __shared__ float b[kTile][kTile + 1];                       // its transpose, scaled
+  const int tx = threadIdx.x, ty = threadIdx.y;
   const size_t plane = (size_t)blockIdx.z * s * s;
-  const int x = blockIdx.x * kTile + threadIdx.x;
-  const int y0 = blockIdx.y * kTile;
-  for (int j = threadIdx.y; j < kTile; j += kRows) {
-    const int y = y0 + j;
-    a[j][threadIdx.x] = (x < s && y < s) ? __ldg(in + plane + (size_t)y * s + x) : 0.f;
-  }
+  const int x0 = blockIdx.x * kTile, y0 = blockIdx.y * kTile;
+  litbox::stage_tile<kVec>(a, in + plane, x0, y0, s);
+  litbox::cp_async_commit();
+  litbox::cp_async_wait<0>();
   __syncthreads();
-  for (int j = threadIdx.y; j < kTile; j += kRows)
-    b[j][threadIdx.x] = a[threadIdx.x][j] * 2.f;   // b = a^T * 2
+  // Transpose 1, b = 2 * a^T: warp ty takes chunk column ty; lane tx reads
+  // the 16 bytes of row tx there (conflict-free by the swizzle) and writes
+  // them down column tx of b's rows 4ty..4ty+3 (stride 33: conflict-free).
+  const float4 v = *reinterpret_cast<const float4*>(a + litbox::swizzled(tx, 4 * ty));
+  b[4 * ty][tx] = v.x * 2.f;
+  b[4 * ty + 1][tx] = v.y * 2.f;
+  b[4 * ty + 2][tx] = v.z * 2.f;
+  b[4 * ty + 3][tx] = v.w * 2.f;
   __syncthreads();
-  for (int j = threadIdx.y; j < kTile; j += kRows) {
-    const int y = y0 + j;
-    if (x < s && y < s) out[plane + (size_t)y * s + x] = b[threadIdx.x][j];  // b^T
+  // Transpose 2, the output tile = b^T.
+  float* dst = out + plane;
+  if (kVec) {
+    // Thread (row r, chunk k) gathers b[4k..4k+3][r] (the banks 4k + r + i
+    // mod 32 differ across a warp) into one 16-byte store.
+    const int u = ty * kTile + tx, r = u >> 3, c = (u & 7) << 2;
+    if (y0 + r < s && x0 + c < s)
+      *reinterpret_cast<float4*>(dst + (size_t)(y0 + r) * s + x0 + c) =
+          make_float4(b[c][r], b[c + 1][r], b[c + 2][r], b[c + 3][r]);
+  } else {
+#pragma unroll
+    for (int r = ty; r < kTile; r += kRows)
+      if (y0 + r < s && x0 + tx < s) dst[(size_t)(y0 + r) * s + x0 + tx] = b[tx][r];
   }
 }
 
@@ -129,15 +163,21 @@ move_kernel(const float* __restrict__ in, const int* __restrict__ shifts,
   }
 }
 
-template <bool kTwice>
 int launch_tiles(const float* in, float* out, int n, int s, cudaStream_t stream) {
   if (n > kMaxImages) return (int)cudaErrorInvalidValue;
   if (n > 0 && s > 0) {
     const unsigned tiles = (unsigned)((s + kTile - 1) / kTile);
     const dim3 grid(tiles, tiles, n), block(kTile, kRows);
-    if (kTwice) transpose2_kernel<<<grid, block, 0, stream>>>(in, out, s);
-    else transpose_kernel<<<grid, block, 0, stream>>>(in, out, s);
+    transpose_kernel<<<grid, block, 0, stream>>>(in, out, s);
   }
+  return (int)cudaGetLastError();
+}
+
+template <bool kVec>
+int launch_transpose2(const float* in, float* out, int n, int s, cudaStream_t stream) {
+  const unsigned tiles = (unsigned)((s + kTile - 1) / kTile);
+  transpose2_kernel<kVec><<<dim3(tiles, tiles, n), dim3(kTile, kRows), 0, stream>>>(
+      in, out, s);
   return (int)cudaGetLastError();
 }
 
@@ -159,12 +199,18 @@ int launch_move(const float* in, float* out, const int* shifts, int n, int s,
 // in, out: (n, s, s) float32, n <= 65535; shifts: (n,) int32 on the device.
 extern "C" int litbox_prof_transpose(const float* in, float* out, int n, int s,
                                      void* stream) {
-  return launch_tiles<false>(in, out, n, s, (cudaStream_t)stream);
+  return launch_tiles(in, out, n, s, (cudaStream_t)stream);
 }
 
+// transpose2 takes any s: 16-byte copies and stores where s % 4 == 0 and
+// both pointers are 16-byte aligned, 4-byte ones otherwise.
 extern "C" int litbox_prof_transpose2(const float* in, float* out, int n, int s,
                                       void* stream) {
-  return launch_tiles<true>(in, out, n, s, (cudaStream_t)stream);
+  if (n > kMaxImages) return (int)cudaErrorInvalidValue;
+  if (n == 0 || s == 0) return (int)cudaGetLastError();
+  if (s % 4 == 0 && litbox::aligned16(in) && litbox::aligned16(out))
+    return launch_transpose2<true>(in, out, n, s, (cudaStream_t)stream);
+  return launch_transpose2<false>(in, out, n, s, (cudaStream_t)stream);
 }
 
 extern "C" int litbox_prof_roll_rows(const float* in, float* out, const int* shifts,

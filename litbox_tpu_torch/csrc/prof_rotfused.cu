@@ -5,11 +5,12 @@
 //
 // Replaces the Pallas kernels of runs/prof_rotfused.py::run_variant
 // (pallas_call at :38), whose bodies are the four variants:
-//   V1 copy+accum   (:78-89)   out = sum_d img[d]; the read floor.
-//   V2 2x transpose (:92-105)  each image transposed into a scratch plane
-//                              and back, then summed.
-//   V3 1 shear      (:108-125) out = sum_d X_alpha[d](img[d]).
-//   V4 3 shears     (:128-157) out = sum_d X_a(X_b(X_a(img[d]))), a = alpha[d],
+//   V1 copy+accum   (:74-85)   out = sum_d img[d]; the read floor.
+//   V2 2x transpose (:88-101)  each image transposed twice in fast memory
+//                              (the script's VMEM scratch planes t1, t2),
+//                              then summed.
+//   V3 1 shear      (:104-124) out = sum_d X_alpha[d](img[d]).
+//   V4 3 shears     (:127-158) out = sum_d X_a(X_b(X_a(img[d]))), a = alpha[d],
 //                              b = beta[d], all three along x (no
 //                              transposes: the wrong rotation, the right cost).
 // X_c shifts row y by c * (y + 0.5 - S/2) texels with a two-tap lerp, a tap
@@ -18,17 +19,26 @@
 //
 // Bound: bytes for all four. Each reads every input image once and writes one
 // plane: N*S*S*4 + S*S*4 bytes (629 MB at N=384, S=640: 0.19 ms at
-// 3.35 TB/s). V2 moves three times that through its scratch planes; that
-// extra traffic is what it prices.
+// 3.35 TB/s). V2 keeps both transposes on chip, so it moves the same bytes
+// as V1: what it prices is the two transposes' shared-memory work.
 //
 // Designs:
 //   V1: one thread per float4 of the plane, the image loop unrolled by 8 so
 //       that eight 16-byte loads are in flight per thread.
-//   V2: two kernels. A writes the transpose of every image into its scratch
-//       plane through a 32x33 shared tile (the pad avoids bank conflicts);
-//       B, one block per 32x32 output tile, reads each scratch plane's tile
-//       back through a shared tile, transposed, and sums over the images in
-//       order in registers.
+//   V2: one kernel, no scratch in device memory. One block per 32x32 output
+//       tile (400 blocks at S=640) walks the images in order with a register
+//       accumulator. A ring of kStages 4 KB shared stages, filled by
+//       cp.async (16-byte copies, 4-byte ones where S % 4 != 0 or the
+//       images are not 16-byte aligned; zero-filled outside the image),
+//       keeps the next 5 images' tiles in flight a block (8 MB over the
+//       400) while the current tile is transposed into a 32x33 shared tile
+//       and read back transposed into the accumulator. One barrier an
+//       image (two t1 buffers). The stages are XOR-swizzled at float4
+//       granularity (tile_ring.cuh), so the 16-byte copies land
+//       conflict-free and the first transpose reads them conflict-free; the
+//       padded tile keeps the second one so. Same order of additions as V1:
+//       the two agree bit for bit. Rings of 4 or 8 stages, or two barriers
+//       an image, measured slower on an H100 80GB HBM3 at 700 W.
 //   V3: one thread per output texel, two taps of each image's row in image
 //       order (the lanes of a warp read one row, coalesced).
 //   V4: one block per row y. The row of image d is staged in shared memory
@@ -40,10 +50,13 @@
 
 #include <cuda_runtime.h>
 
+#include "tile_ring.cuh"
+
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kRows = 8;          // threads per tile column in the transposes
+constexpr int kTile = litbox::kRingTile;
+constexpr int kRows = litbox::kRingRows;  // threads per tile column in V2
+constexpr int kStages = 6;        // V2's ring: 5 images' tiles in flight a block
 constexpr int kThreads = 256;
 constexpr int kRowThreads = 256;  // V4 block
 constexpr int kRowVals = 4;       // V4: values of a row per thread, S <= 1024
@@ -71,50 +84,57 @@ copy_accum_kernel(const float4* __restrict__ img, float4* __restrict__ out,
   out[i] = acc;
 }
 
-// scratch[d][x][y] = img[d][y][x], tile by tile.
+// out = sum_d (img[d]^T)^T for one 32x32 output tile per block, the images
+// in order. Image d's tile is staged by cp.async into ring stage d % kStages
+// (swizzled, tile_ring.cuh), kStages - 1 images ahead of the one being
+// summed; it is transposed into t1[d % 2], and that is read back transposed
+// into the accumulator. Both transposes are shared memory to shared memory
+// (or registers). One __syncthreads an image: between the two transposes,
+// after each thread has also waited for image d + 1's copies, so the same
+// barrier publishes the next stage; the two t1 buffers let image d + 1's
+// first transpose start while image d's second is still being read.
+template <bool kVec>
 __global__ void __launch_bounds__(kTile * kRows)
-transpose_kernel(const float* __restrict__ img, float* __restrict__ scratch, int s) {
-  __shared__ float tile[kTile][kTile + 1];
-  const size_t plane = (size_t)blockIdx.z * s * s;
-  const int x = blockIdx.x * kTile + threadIdx.x;
-  const int y0 = blockIdx.y * kTile;
-  for (int j = threadIdx.y; j < kTile; j += kRows) {
-    const int y = y0 + j;
-    if (x < s && y < s) tile[j][threadIdx.x] = __ldg(img + plane + (size_t)y * s + x);
-  }
+transpose2_accum_kernel(const float* __restrict__ img, float* __restrict__ out, int n,
+                        int s) {
+  __shared__ __align__(16) float stage[kStages][litbox::kRingTileFloats];
+  __shared__ float t1[2][kTile][kTile + 1];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int x0 = blockIdx.x * kTile, y0 = blockIdx.y * kTile;
+  const size_t plane = (size_t)s * s;
+  // Image d's tile into its stage; one commit group per image, empty past
+  // the last image, so that the waits below count images.
+  auto load = [&](int d) {
+    if (d < n) litbox::stage_tile<kVec>(stage[d % kStages], img + d * plane, x0, y0, s);
+    litbox::cp_async_commit();
+  };
+  for (int d = 0; d < kStages - 1; ++d) load(d);
+  litbox::cp_async_wait<kStages - 2>();  // image 0's copies have landed
   __syncthreads();
-  const int ox = y0 + threadIdx.x;        // output column = input row
-  for (int j = threadIdx.y; j < kTile; j += kRows) {
-    const int oy = blockIdx.x * kTile + j;  // output row = input column
-    if (ox < s && oy < s) scratch[plane + (size_t)oy * s + ox] = tile[threadIdx.x][j];
-  }
-}
-
-// out[y][x] = sum_d scratch[d][x][y], each tile read back transposed.
-__global__ void __launch_bounds__(kTile * kRows)
-transpose_accum_kernel(const float* __restrict__ scratch, float* __restrict__ out,
-                       int n, int s) {
-  __shared__ float tile[kTile][kTile + 1];
-  const int x0 = blockIdx.x * kTile;
-  const int y0 = blockIdx.y * kTile;
   float acc[kTile / kRows] = {0.f, 0.f, 0.f, 0.f};
   for (int d = 0; d < n; ++d) {
-    const float* plane = scratch + (size_t)d * s * s;
-    // Rows x0.. of the scratch plane hold columns x0.. of the image.
-    for (int j = threadIdx.y; j < kTile; j += kRows) {
-      const int sr = x0 + j, sc = y0 + threadIdx.x;
-      tile[j][threadIdx.x] = (sr < s && sc < s) ? __ldg(plane + (size_t)sr * s + sc) : 0.f;
-    }
-    __syncthreads();
+    float (*t)[kTile + 1] = t1[d & 1];
+    // Transpose 1, t = tile^T: warp ty takes chunk column ty; lane tx reads
+    // the 16 bytes of row tx there (conflict-free by the swizzle) and writes
+    // them down column tx of t's rows 4ty..4ty+3 (stride 33: conflict-free).
+    const float4 v = *reinterpret_cast<const float4*>(
+        stage[d % kStages] + litbox::swizzled(tx, 4 * ty));
+    t[4 * ty][tx] = v.x;
+    t[4 * ty + 1][tx] = v.y;
+    t[4 * ty + 2][tx] = v.z;
+    t[4 * ty + 3][tx] = v.w;
+    litbox::cp_async_wait<kStages - 3>();  // image d + 1's copies have landed
+    __syncthreads();  // t is whole; stage (d - 1) % kStages is read and free
+    load(d + kStages - 1);
+    // Transpose 2, acc += t^T at (row ty + 8k, column tx): lane tx reads
+    // row tx of t (stride 33: conflict-free).
 #pragma unroll
-    for (int k = 0; k < kTile / kRows; ++k)
-      acc[k] += tile[threadIdx.x][threadIdx.y + k * kRows];
-    __syncthreads();
+    for (int k = 0; k < kTile / kRows; ++k) acc[k] += t[tx][ty + k * kRows];
   }
-  const int x = x0 + threadIdx.x;
+  const int x = x0 + tx;
 #pragma unroll
   for (int k = 0; k < kTile / kRows; ++k) {
-    const int y = y0 + threadIdx.y + k * kRows;
+    const int y = y0 + ty + k * kRows;
     if (x < s && y < s) out[(size_t)y * s + x] = acc[k];
   }
 }
@@ -230,20 +250,17 @@ extern "C" int litbox_prof_copy_accum(const float* img, float* out, int n, int s
   return (int)cudaGetLastError();
 }
 
-// scratch: (n, s, s) float32 workspace.
-extern "C" int litbox_prof_transpose2_accum(const float* img, float* scratch,
-                                            float* out, int n, int s, void* stream) {
-  const unsigned tiles = (unsigned)((s + kTile - 1) / kTile);
-  const dim3 block(kTile, kRows);
-  if (n > 0 && s > 0) {
-    transpose_kernel<<<dim3(tiles, tiles, n), block, 0, (cudaStream_t)stream>>>(
-        img, scratch, s);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+// img (n, s, s) and out (s, s) float32, any s: 16-byte copies where s % 4 == 0
+// and img is 16-byte aligned, 4-byte copies otherwise.
+extern "C" int litbox_prof_transpose2_accum(const float* img, float* out, int n, int s,
+                                            void* stream) {
   if (s > 0) {
-    transpose_accum_kernel<<<dim3(tiles, tiles), block, 0, (cudaStream_t)stream>>>(
-        scratch, out, n, s);
+    const unsigned tiles = (unsigned)((s + kTile - 1) / kTile);
+    const dim3 grid(tiles, tiles), block(kTile, kRows);
+    if (s % 4 == 0 && litbox::aligned16(img))
+      transpose2_accum_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(img, out, n, s);
+    else
+      transpose2_accum_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(img, out, n, s);
   }
   return (int)cudaGetLastError();
 }

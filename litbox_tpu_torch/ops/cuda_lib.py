@@ -38,7 +38,7 @@ _SIGNATURES = {
     "litbox_shear_reduce": [_P] * 3 + [_I] * 9 + [_P],
     "litbox_rot3sum": [_P] * 4 + [_I] * 4 + [_P] * 2,
     "litbox_prof_copy_accum": [_P] * 2 + [_I] * 2 + [_P],
-    "litbox_prof_transpose2_accum": [_P] * 3 + [_I] * 2 + [_P],
+    "litbox_prof_transpose2_accum": [_P] * 2 + [_I] * 2 + [_P],
     "litbox_prof_shear1_accum": [_P] * 3 + [_I] * 2 + [_P],
     "litbox_prof_shear3_accum": [_P] * 4 + [_I] * 2 + [_P],
     "litbox_prof_transpose": [_P] * 2 + [_I] * 2 + [_P],

@@ -4,7 +4,7 @@ and returning the whole (N, S, S) output (counterparts of the Pallas kernels
 of runs/prof_microops.py, pallas_call at :55, :72, :95, :119 and :145).
 
     transpose   out[d] = x[d]^T
-    transpose2  out[d] = ((x[d]^T) * 2)^T, through two transposes
+    transpose2  out[d] = ((x[d]^T) * 2)^T, through two transposes on chip
     roll_rows   out[d] = roll(x[d], shifts[d], axis=0)   rows move
     roll_cols   out[d] = roll(x[d], shifts[d], axis=1)   columns move
     flip2       out[d] = x[d][::-1, ::-1]                rot90 by 2
@@ -104,8 +104,11 @@ transpose.launches = 0
 
 
 def transpose2(x: torch.Tensor) -> torch.Tensor:
-    """Every 32x32 tile transposed into a second shared tile, scaled by 2 and
-    read back transposed: 2 * x, by way of two in-shared-memory transposes."""
+    """2 * x, by way of two in-shared-memory transposes: a block per 32x32
+    tile and image stages its tile by 16-byte cp.async copies, transposes
+    it into a second shared tile while scaling by 2 and reads that back
+    transposed into 16-byte stores. Any S (4-byte copies and stores where
+    S % 4 != 0)."""
     if cuda_lib.on_cpu(x):
         return transpose2_plain(x)
     out = _launch("transpose2", x)

@@ -3,7 +3,7 @@ variants, each summing N float32 (S, S) images into one (S, S) plane
 (counterpart of runs/prof_rotfused.py::run_variant, pallas_call at :38).
 
     V1 copy_accum        sum_d img[d]                       the read floor
-    V2 transpose2_accum  sum_d (img[d]^T)^T, through a scratch plane per image
+    V2 transpose2_accum  sum_d (img[d]^T)^T, both transposes in shared memory
     V3 shear1_accum      sum_d X_alpha[d](img[d])           one shear's 2 taps
     V4 shear3_accum      sum_d X_a(X_b(X_a(img[d])))        three shears, no transposes
 
@@ -79,15 +79,17 @@ copy_accum.launches = 0
 
 
 def transpose2_accum(img: torch.Tensor) -> torch.Tensor:
-    """V2: every image transposed into its scratch plane and back through
-    32x33 shared tiles, then summed."""
+    """V2: one launch, no scratch in device memory. A block per 32x32 output
+    tile walks the images in order; each image's tile arrives by cp.async
+    in a ring of six shared stages, five images ahead, and is transposed
+    twice in shared memory into the accumulator. Bound by the bytes read,
+    as V1. Sums in V1's order, so the two agree bit for bit. Any S: 16-byte
+    copies where S % 4 == 0, 4-byte ones otherwise."""
     if cuda_lib.on_cpu(img):
         return transpose2_accum_plain(img)
     n, s, out, stream = _prepare("transpose2_accum", img)
-    scratch = torch.empty_like(img)
     cuda_lib.check(cuda_lib.library().litbox_prof_transpose2_accum(
-        img.data_ptr(), scratch.data_ptr(), out.data_ptr(), n, s, stream),
-        "transpose2_accum")
+        img.data_ptr(), out.data_ptr(), n, s, stream), "transpose2_accum")
     transpose2_accum.launches += 1
     return out
 

@@ -93,20 +93,30 @@ def test_rotate_planar_sum_fused_kernel_matches_plain(dev, s, d, delta):
                                    rtol=0)
 
 
+# (N, S): S not a multiple of the 32-wide tiles (100), one image, 13 images
+# (not a multiple of V2's 6-stage ring) and an odd S (97: rows that are not
+# 16-byte aligned, V2's 4-byte copies). V1 takes S*S divisible by 4 only.
+SPLIT_SHAPES = [(6, 128), (9, 100), (24, 640), (1, 640), (13, 128), (5, 97)]
+
+
 @pytest.mark.parametrize("name", ["copy_accum", "transpose2_accum",
                                   "shear1_accum", "shear3_accum"])
-@pytest.mark.parametrize("n,s", [(6, 128), (9, 100), (24, 640)])
+@pytest.mark.parametrize("n,s", SPLIT_SHAPES)
 def test_rotfused_split_kernel_matches_plain(dev, name, n, s):
-    """The four variants of the K4 cost split against their plain versions,
-    with S not a multiple of the 32-wide tiles (100) among the shapes. The
-    kernels sum the images in order, the plain versions in PyTorch's order:
-    held to 2e-5 of the largest magnitude."""
+    """The four variants of the K4 cost split against their plain versions.
+    The kernels sum the images in order, the plain versions in PyTorch's
+    order: held to 2e-5 of the largest magnitude. At odd S, V1 raises."""
     img = _rand(dev, 20, (n, s, s))
     resid = _rand(dev, 21, (n,), -np.pi / 4, np.pi / 4)
     coefs = {"shear1_accum": (-torch.tan(resid / 2),),
              "shear3_accum": (-torch.tan(resid / 2), torch.sin(resid))}.get(name, ())
     fn = getattr(rotfused, name)
     before = fn.launches
+    if name == "copy_accum" and s * s % 4:
+        with pytest.raises(ValueError):
+            fn(img)
+        assert fn.launches == before
+        return
     got = fn(img, *coefs)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
@@ -115,13 +125,35 @@ def test_rotfused_split_kernel_matches_plain(dev, name, n, s):
     torch.testing.assert_close(got, ref, atol=2e-5 * float(ref.abs().max()), rtol=0)
 
 
+@pytest.mark.parametrize("n,s", SPLIT_SHAPES)
+def test_transpose2_accum_equals_copy_accum(dev, n, s):
+    """V2 adds the images in V1's order, so the two agree bit for bit at every
+    shape V1 takes (S*S divisible by 4), also when V2 reads the images from
+    a view that is not 16-byte aligned (its 4-byte copies). At odd S, which
+    V1 does not take, V2 is held to its plain version instead."""
+    img = _rand(dev, 24, (n, s, s))
+    if s * s % 4 == 0:
+        assert torch.equal(rotfused.transpose2_accum(img), rotfused.copy_accum(img))
+        # The same images one float past a 16-byte boundary: 4-byte copies.
+        flat = torch.empty(n * s * s + 1, device=dev)
+        shifted = flat[1:].view(n, s, s)
+        shifted.copy_(img)
+        assert torch.equal(rotfused.transpose2_accum(shifted), rotfused.copy_accum(img))
+    else:
+        got = rotfused.transpose2_accum(img)
+        ref = rotfused.transpose2_accum_plain(img)
+        torch.testing.assert_close(got, ref, atol=2e-5 * float(ref.abs().max()), rtol=0)
+
+
 @pytest.mark.parametrize("name", ["transpose", "transpose2", "roll_rows",
                                   "roll_cols", "flip2"])
-@pytest.mark.parametrize("n,s", [(6, 128), (9, 100), (24, 640)])
+@pytest.mark.parametrize("n,s", [(6, 128), (9, 100), (24, 640), (1, 640), (3, 97)])
 def test_microops_kernel_matches_plain(dev, name, n, s):
     """The five data-movement kernels (runs/prof_microops.py's) against their
-    plain versions, bit for bit: S = 100 leaves partial 32-wide tiles, and
-    the roll shifts run from -3S to 3S (negative and >= S among them)."""
+    plain versions, bit for bit: S = 100 leaves partial 32-wide tiles, S = 97
+    rows that are not 16-byte aligned (transpose2's 4-byte path), and the
+    roll shifts run from -3S to 3S (negative and >= S among them).
+    transpose2 is also held to 2 * x, bit for bit."""
     x = _rand(dev, 22, (n, s, s))
     shifts = np.random.default_rng(23).integers(-3 * s, 3 * s, n).astype(np.int32)
     args = (torch.from_numpy(shifts).to(dev),) if name.startswith("roll") else ()
@@ -133,6 +165,8 @@ def test_microops_kernel_matches_plain(dev, name, n, s):
     ref = getattr(microops, name + "_plain")(x, *args)
     assert got.shape == ref.shape == (n, s, s)
     assert torch.equal(got, ref)
+    if name == "transpose2":
+        assert torch.equal(got, torch.mul(x, 2.0))
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -157,6 +191,15 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         microops.roll_cols(img, shifts.long())
     with pytest.raises(ValueError):
         microops.roll_rows(img, shifts[:3])
+    # V2 takes contiguous float32 (N, S, S) images on one device, any S.
+    with pytest.raises(ValueError):                         # not contiguous
+        rotfused.transpose2_accum(img.transpose(1, 2))
+    with pytest.raises(TypeError):
+        rotfused.transpose2_accum(img.double())
+    with pytest.raises(ValueError):                         # not square
+        rotfused.transpose2_accum(img[:, :8].contiguous())
+    with pytest.raises(ValueError):                         # not (N, S, S)
+        rotfused.transpose2_accum(img[0])
 
 
 def test_resolve_on_card_matches_cpu(dev):
