@@ -9,7 +9,9 @@ and runs seven phases, each printed with its wall seconds:
   rotate-and-sum) held against its plain PyTorch version at the shapes of
   bench.py's frame, of the pipeline below and of the realtime 1080p
   profile's per-frame resolve, each timed (CUDA events, median of 7) beside
-  the bound and a library yardstick where one exists.
+  the bound and a library yardstick where one exists; K2 and K3 at the
+  per-frame resolve's shape from a flushed L2, and K3 held equal to the
+  in-order sum of K2's outputs bit for bit.
 - frame: bench.py's frame at 256^2 (rotated fields with 128 bins, 10 trace
   frames of 2,000,000 photons with 524,288 bounce chains, one resolve and
   the HDR conversion) with its checks.
@@ -280,7 +282,18 @@ def check_scan(gen, d, s, n_groups, group, tracers) -> dict:
     return out
 
 
-def check_shear(gen, n, s) -> dict:
+def tap_bytes(coef, s, row_lo, row_hi) -> float:
+    """Bytes of the input rows [row_lo, row_hi) of (N, S, S) images that a
+    shear's taps reach: row r of image d is shifted by j = floor(s) texels,
+    so its taps read texels [max(0, j), min(S, S + j + 1)). The rest of the
+    row is never read (the kernels zero-fill it without a load)."""
+    r = torch.arange(row_lo, row_hi, device=coef.device, dtype=torch.float32)
+    j = torch.floor(coef[:, None] * ((r + 0.5) - s / 2.0)).clamp(-s - 2, s + 2).long()
+    reached = (torch.clamp(s + j + 1, max=s) - torch.clamp(j, min=0)).clamp(min=0)
+    return 4.0 * float(reached.sum())
+
+
+def check_shear(gen, n, s, cold=False) -> dict:
     img = torch.rand((n, s, s), generator=gen, device="cuda")
     coef = (torch.rand((n,), generator=gen, device="cuda") - 0.5) * 1.4
     run = lambda: rotate.shear(img, coef, 1, 1, s)
@@ -297,26 +310,46 @@ def check_shear(gen, n, s) -> dict:
         img[:, None], grid, mode="bilinear", padding_mode="zeros",
         align_corners=True)
     lib_err = float((library()[:, 0] - plain()).abs().max())
-    b, by = bound(2 * 4 * n * s * s, 4 * n * s * s)
-    out.update(shape=f"({n},{s},{s})", ms=time_ms(run), plain_ms=time_ms(plain),
-               bound_ms=b, bound_by=by, library_ms=time_ms(library),
+    b, by = bound(tap_bytes(coef, s, 0, s) + 4 * n * s * s, 4 * n * s * s)
+    out.update(shape=f"({n},{s},{s}){' L2 flushed' if cold else ''}",
+               ms=time_ms(run, cold=cold), plain_ms=time_ms(plain, cold=cold),
+               bound_ms=b, bound_by=by, bound_full_rows_ms=bound(8 * n * s * s, 0)[0],
+               library_ms=time_ms(library, cold=cold),
                library="torch.nn.functional.grid_sample",
                library_max_abs_err=lib_err)
     return out
 
 
-def check_shear_reduce(gen, n, s, row_lo, row_hi) -> dict:
+def check_shear_reduce(gen, n, s, row_lo, row_hi, cold=False) -> dict:
     img = torch.rand((n, s, s), generator=gen, device="cuda")
     coef = (torch.rand((n,), generator=gen, device="cuda") - 0.5) * 0.9
     args = (1, 1, s, rotate.ALPHA_BOUND, row_lo, row_hi, 3)
     run = lambda: rotate.shear_reduce(img, coef, *args)
     plain = lambda: rotate.shear_reduce_plain(img, coef, *args)
-    out = compare("shear_reduce", run(), plain())
+    got = run()
+    out = compare("shear_reduce", got, plain())
+    # K3 rounds each tap as K2 rounds its output and adds in image order, so
+    # it equals the in-order sum of K2's outputs bit for bit.
     rows = row_hi - row_lo
-    b, by = bound(4 * (n * rows * s + 3 * rows * s), 4 * n * rows * s)
-    out.update(shape=f"({n},{s},{s}) rows [{row_lo},{row_hi}) groups 3",
-               ms=time_ms(run), plain_ms=time_ms(plain), bound_ms=b,
-               bound_by=by, library_ms=None)
+    each = rotate.shear(img, coef, 1, 1, s)[:, row_lo:row_hi].reshape(3, n // 3, rows, s)
+    total = each[:, 0].clone()
+    for k in range(1, n // 3):
+        total += each[:, k]
+    if not torch.equal(got, total):
+        raise AssertionError("shear_reduce differs from the in-order sum of shear: "
+                             f"max_abs_err {float((got - total).abs().max())}")
+    del each, total
+    # The read floor: one torch.sum over the same rows reads the bytes K3
+    # reads (a yardstick of this card's rate, not the same function).
+    needed = img[:, row_lo:row_hi]
+    floor_ms = time_ms(lambda: torch.sum(needed, 0), cold=cold)
+    b, by = bound(tap_bytes(coef, s, row_lo, row_hi) + 4 * 3 * rows * s, 4 * n * rows * s)
+    out.update(shape=f"({n},{s},{s}) rows [{row_lo},{row_hi}) groups 3"
+                     f"{' L2 flushed' if cold else ''}",
+               ms=time_ms(run, cold=cold), plain_ms=time_ms(plain, cold=cold),
+               bound_ms=b, bound_by=by,
+               bound_full_rows_ms=bound(4 * (n * rows * s + 3 * rows * s), 0)[0],
+               equals_shear_sum=True, read_floor_ms=floor_ms, library_ms=None)
     return out
 
 
@@ -366,7 +399,8 @@ def kernels_phase() -> dict:
     # resolve (make_frame_fn at REALTIME_1080P's sim size 480x272): S=640,
     # all bins from a one-tracer source, 3*D images, rows 128..512. The
     # realtime profile's per-frame resolve: one group of 16 from a two-tracer
-    # source, 3*8 images, rows 128..512.
+    # source, 3*8 images, rows 128..512; K2 and K3 there from a flushed L2,
+    # since their inputs (39 MB, 24 MB) fit the 50 MB L2.
     # K4: bench.py's and the realtime resolve shapes, with delta 0 and a
     # traced delta of -0.3 bins, and the realtime shape at 1/4 of the bins.
     jitter = -0.3 * 2 * np.pi / d
@@ -375,10 +409,10 @@ def kernels_phase() -> dict:
                                   check_scan(gen, d, 640, 1, 0, 1),
                                   check_scan(gen, d, 640, 16, 3, 2)),
         "shear": (check_shear(gen, 3 * d, 384), check_shear(gen, 3 * d, 640),
-                  check_shear(gen, 3 * d // 16, 640)),
+                  check_shear(gen, 3 * d // 16, 640, cold=True)),
         "shear_reduce": (check_shear_reduce(gen, 3 * d, 384, 64, 320),
                          check_shear_reduce(gen, 3 * d, 640, 128, 512),
-                         check_shear_reduce(gen, 3 * d // 16, 640, 128, 512)),
+                         check_shear_reduce(gen, 3 * d // 16, 640, 128, 512, cold=True)),
         "rotate_planar_sum_fused": (
             check_rotfused(gen, 384, 1, 0.0), check_rotfused(gen, 640, 1, 0.0),
             check_rotfused(gen, 384, 1, jitter), check_rotfused(gen, 640, 1, jitter),

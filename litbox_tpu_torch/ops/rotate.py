@@ -8,14 +8,21 @@ different angle per image (the RBT engine's direction bins).
 
 `shear` replaces the Pallas kernel `litbox_tpu/ops/rotate.py::shear`
 (pallas_call at :163) and `shear_reduce` replaces `rotate.py::shear_reduce`
-(pallas_call at :210); both are CUDA C++ in `csrc/rotate.cu`, one thread per
-output element, bound by bytes (shear: one read and one write of the batch,
-453 MB at (384, 384, 384), 0.14 ms at 3.35 TB/s; shear_reduce: one read of
-the needed rows, 151 MB at the bench shape, 0.045 ms). Both take the JAX
-functions' arguments in the JAX order, `coef_bound` included, so a call
-written for the JAX package binds the same parameters here. The kernels
-compute the shift exactly for any coefficient, so `coef_bound` (the static
-bound on |coef| that sized the Pallas roll loop) bounds nothing here.
+(pallas_call at :210); both are CUDA C++ in `csrc/rotate.cu`. Both are bound
+by bytes: shear reads the floats its taps reach and writes its output (0.359
+ms at (384, 640, 640) with coefficients up to 0.7 at 3.35 TB/s);
+shear_reduce reads the reached floats of the needed rows and writes one
+plane a group (0.110 ms at (384, 640, 640), rows [128, 512), 3 groups). A
+warp owns an output row segment, so each row's shift is computed once, and
+writes 16 bytes a lane: shear loads each chunk's two source chunks into
+registers (0.406 ms there on an H100 80GB HBM3 at 700 W, 88%);
+shear_reduce walks its group's images in order through a 3-window
+cp.async ring a warp (0.137 ms, 80%) and equals the in-order sum of
+shear's outputs bit for bit. Both take the JAX functions' arguments in the
+JAX order, `coef_bound` included, so a call written for the JAX package
+binds the same parameters here. The kernels compute the shift exactly for
+any coefficient, so `coef_bound` (the static bound on |coef| that sized the
+Pallas roll loop) bounds nothing here.
 
 `rotate_planar_sum_fused` replaces the Pallas kernel
 `litbox_tpu/ops/rotate.py::rotate_planar_sum_fused` (pallas_call at :458):

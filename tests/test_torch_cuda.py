@@ -48,13 +48,41 @@ def test_scan_kernel_matches_plain(dev, width, group, n_groups, tracers):
         torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("rows,width,row_div,elem_scale,bound",
-                         [(64, 64, 1, 1, 0.4), (64, 192, 1, 3, 0.4),
-                          (192, 64, 3, 1, 0.7), (48, 80, 1, 1, 3.0)])
-def test_shear_kernel_matches_plain(dev, rows, width, row_div, elem_scale, bound):
+def _images(dev, seed, n, rows, width, layout):
+    """(n, rows, width) contiguous images: "aligned" from torch; "slice" as
+    img[1:] of n + 1 images (one float off 16-byte alignment when
+    rows * width is odd); "offset" a view one float into a buffer (16-byte
+    rows, an unaligned base)."""
+    if layout == "slice":
+        return _rand(dev, seed, (n + 1, rows, width))[1:]
+    img = _rand(dev, seed, (n, rows, width))
+    if layout == "offset":
+        buf = torch.empty(img.numel() + 1, device=dev)
+        img = buf[1:].view(n, rows, width).copy_(img)
+    return img
+
+
+# (n, rows, width, row_div, elem_scale, bound, layout): after the first four,
+# odd widths (n_texels 37, planar and interleaved with elem_scale 3), an
+# unaligned base (odd width, and 16-byte rows), rows that leave the last
+# block of 4 row warps ragged, shifts past the whole row, and 1920-float
+# rows (three warps a row).
+SHEAR_KERNEL_CASES = [
+    (12, 64, 64, 1, 1, 0.4, "aligned"), (12, 64, 192, 1, 3, 0.4, "aligned"),
+    (12, 192, 64, 3, 1, 0.7, "aligned"), (12, 48, 80, 1, 1, 3.0, "aligned"),
+    (5, 9, 37, 1, 1, 0.7, "aligned"), (5, 9, 111, 1, 3, 0.7, "aligned"),
+    (7, 9, 37, 1, 1, 0.7, "slice"), (6, 50, 64, 1, 1, 0.4, "offset"),
+    (3, 13, 640, 1, 1, 0.7, "aligned"), (4, 16, 64, 1, 1, 40.0, "aligned"),
+    (2, 8, 1920, 1, 3, 0.4, "aligned")]
+
+
+@pytest.mark.parametrize("n,rows,width,row_div,elem_scale,bound,layout",
+                         SHEAR_KERNEL_CASES)
+def test_shear_kernel_matches_plain(dev, n, rows, width, row_div, elem_scale, bound,
+                                    layout):
     n_texels = width // elem_scale
-    img = _rand(dev, 4, (12, rows, width))
-    coef = _rand(dev, 5, (12,), -bound, bound)
+    img = _images(dev, 4, n, rows, width, layout)
+    coef = _rand(dev, 5, (n,), -bound, bound)
     before = rotate.shear.launches
     got = rotate.shear(img, coef, row_div, elem_scale, n_texels)
     torch.cuda.synchronize()
@@ -63,17 +91,51 @@ def test_shear_kernel_matches_plain(dev, rows, width, row_div, elem_scale, bound
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("groups,row_lo,row_hi", [(1, 0, 64), (3, 8, 40)])
-def test_shear_reduce_kernel_matches_plain(dev, groups, row_lo, row_hi):
-    img = _rand(dev, 6, (24, 64, 64))
-    coef = _rand(dev, 7, (24,), -0.5, 0.5)
+# (n, width, elem_scale, bound, groups, row_lo, row_hi, layout) over 64 rows:
+# after the first two, odd widths, one image a group (n_per 1) and 128,
+# row_lo not a multiple of 8, unaligned bases, shifts past the row, and an
+# empty batch (every group sums to zero).
+SHEAR_REDUCE_KERNEL_CASES = [
+    (24, 64, 1, 0.5, 1, 0, 64, "aligned"), (24, 64, 1, 0.5, 3, 8, 40, "aligned"),
+    (24, 37, 1, 0.5, 3, 5, 30, "aligned"), (24, 111, 3, 0.5, 2, 3, 17, "aligned"),
+    (12, 64, 1, 0.5, 12, 0, 64, "aligned"), (128, 64, 1, 0.5, 1, 13, 51, "aligned"),
+    (12, 37, 1, 0.5, 3, 1, 63, "offset"), (9, 64, 1, 0.5, 3, 7, 20, "offset"),
+    (6, 640, 1, 0.7, 2, 11, 53, "aligned"), (8, 64, 1, 40.0, 2, 0, 64, "aligned"),
+    (0, 64, 1, 0.5, 3, 0, 64, "aligned")]
+
+
+@pytest.mark.parametrize("n,width,elem_scale,bound,groups,row_lo,row_hi,layout",
+                         SHEAR_REDUCE_KERNEL_CASES)
+def test_shear_reduce_kernel_matches_plain(dev, n, width, elem_scale, bound, groups,
+                                           row_lo, row_hi, layout):
+    n_texels = width // elem_scale
+    img = _images(dev, 6, n, 64, width, layout)
+    coef = _rand(dev, 7, (n,), -bound, bound)
+    args = (1, elem_scale, n_texels, 0.5, row_lo, row_hi, groups)
     before = rotate.shear_reduce.launches
-    got = rotate.shear_reduce(img, coef, 1, 1, 64, 0.5, row_lo, row_hi, groups)
+    got = rotate.shear_reduce(img, coef, *args)
     torch.cuda.synchronize()
     assert rotate.shear_reduce.launches == before + 1
-    ref = rotate.shear_reduce_plain(img, coef, 1, 1, 64, 0.5, row_lo, row_hi, groups)
+    ref = rotate.shear_reduce_plain(img, coef, *args)
     assert got.shape == ref.shape
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,rows,width,groups,row_lo,row_hi",
+                         [(24, 64, 64, 3, 8, 40), (12, 30, 37, 2, 3, 29)])
+def test_shear_reduce_equals_in_order_sum_of_shear(dev, n, rows, width, groups,
+                                                   row_lo, row_hi):
+    """K3 adds each image's taps, rounded as K2 rounds its outputs, in image
+    order: it equals the in-order sum of K2's outputs bit for bit."""
+    img = _rand(dev, 12, (n, rows, width))
+    coef = _rand(dev, 13, (n,), -0.6, 0.6)
+    got = rotate.shear_reduce(img, coef, 1, 1, width, 0.5, row_lo, row_hi, groups)
+    each = rotate.shear(img, coef, 1, 1, width)[:, row_lo:row_hi]
+    each = each.reshape(groups, n // groups, row_hi - row_lo, width)
+    ref = each[:, 0].clone()
+    for k in range(1, n // groups):
+        ref = ref + each[:, k]
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("s,d,delta", [(128, 8, 0.0), (96, 12, -0.2), (64, 16, 0.3)])

@@ -32,20 +32,24 @@ def _rand(seed, shape, lo=0.0, hi=1.0):
     return np.random.default_rng(seed).uniform(lo, hi, shape).astype(np.float32)
 
 
-# (rows, width, row_div, elem_scale, coef bound): the x-shear of
-# channel-interleaved rows, the y-shear on their transpose, and the planar case.
+# (rows, width, row_div, elem_scale, coef bound), n_texels = width /
+# elem_scale: the x-shear of channel-interleaved rows, the y-shear on their
+# transpose, and the planar case; then the same at an odd width (n_texels
+# 37), where the card's kernels take 4-byte copies and stores.
 SHEAR_CASES = [(S, S, 1, 1, ALPHA_BOUND), (S, 3 * S, 1, 3, ALPHA_BOUND),
-               (3 * S, S, 3, 1, BETA_BOUND)]
+               (3 * S, S, 3, 1, BETA_BOUND), (S, 37, 1, 1, ALPHA_BOUND),
+               (S, 111, 1, 3, ALPHA_BOUND), (120, 37, 3, 1, BETA_BOUND)]
 
 
 @pytest.mark.parametrize("rows,width,row_div,elem_scale,bound", SHEAR_CASES)
 def test_shear_matches_pallas(rows, width, row_div, elem_scale, bound):
+    n_texels = width // elem_scale
     img = _rand(0, (D, rows, width))
     coef = _rand(1, (D,), -bound + 1e-3, bound - 1e-3)
     ref = jrot.shear(jnp.asarray(img), jnp.asarray(coef), row_div, elem_scale,
-                     S, coef_bound=bound)
+                     n_texels, coef_bound=bound)
     got = trot.shear(torch.from_numpy(img), torch.from_numpy(coef), row_div,
-                     elem_scale, S)
+                     elem_scale, n_texels)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
 
 
@@ -65,15 +69,18 @@ def test_shear_is_exact_beyond_the_pallas_bound():
             assert abs(float(got[0, r, lane]) - ((1 - f) * a + f * b)) < 1e-6
 
 
-@pytest.mark.parametrize("groups,row_lo,row_hi", [(1, 8, 56), (2, 0, 64),
-                                                  (4, 16, 40)])
-def test_shear_reduce_matches_pallas(groups, row_lo, row_hi):
-    img = _rand(3, (D, S, S))
+@pytest.mark.parametrize("groups,row_lo,row_hi,width", [
+    pytest.param(1, 8, 56, S, id="1-8-56"), pytest.param(2, 0, 64, S, id="2-0-64"),
+    pytest.param(4, 16, 40, S, id="4-16-40"),
+    pytest.param(2, 8, 48, 37, id="2-8-48-width37")])
+def test_shear_reduce_matches_pallas(groups, row_lo, row_hi, width):
+    """S rows of `width` texels; width 37 takes the card's 4-byte path."""
+    img = _rand(3, (D, S, width))
     coef = _rand(4, (D,), -0.4, 0.4)
-    ref = jrot.shear_reduce(jnp.asarray(img), jnp.asarray(coef), 1, 1, S,
+    ref = jrot.shear_reduce(jnp.asarray(img), jnp.asarray(coef), 1, 1, width,
                             ALPHA_BOUND, row_lo, row_hi, groups=groups)
     got = trot.shear_reduce(torch.from_numpy(img), torch.from_numpy(coef), 1,
-                            1, S, ALPHA_BOUND, row_lo, row_hi, groups=groups)
+                            1, width, ALPHA_BOUND, row_lo, row_hi, groups=groups)
     assert got.shape == np.asarray(ref).shape
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
 
