@@ -10,8 +10,10 @@ and runs seven phases, each printed with its wall seconds:
   bench.py's frame, of the pipeline below and of the realtime 1080p
   profile's per-frame resolve, each timed (CUDA events, median of 7) beside
   the bound and a library yardstick where one exists; K2 and K3 at the
-  per-frame resolve's shape from a flushed L2, and K3 held equal to the
-  in-order sum of K2's outputs bit for bit.
+  per-frame resolve's shape from a flushed L2, K3 held equal to the
+  in-order sum of K2's outputs bit for bit, and K4 also with LARGE_DELTA,
+  two calls held equal bit for bit, beside its own counts of the windows
+  it took by its tap path and of the bytes its staged copies read.
 - frame: bench.py's frame at 256^2 (rotated fields with 128 bins, 10 trace
   frames of 2,000,000 photons with 524,288 bounce chains, one resolve and
   the HDR conversion) with its checks.
@@ -35,11 +37,14 @@ and runs seven phases, each printed with its wall seconds:
   resolve_raw against K1 + K4 at the group shape, and the frame's checks.
 - rotfused_split: the four variants of K4's cost split (V1-V4,
   litbox_tpu_torch/prof/rotfused.py, runs/prof_rotfused.py's kernels) and
-  K4 itself, timed at (384, 640, 640) and at the frame's group shape
-  (24, 640, 640) beside their byte bounds, then each held against its
-  plain version, and V2 held equal to V1 bit for bit (both add the images
-  in order); V1 and V2 beside torch.sum, with their library_ratio (kernel
-  ms / library ms).
+  K4 itself (also with a 1.2 rad delta, LARGE_DELTA), timed at
+  (384, 640, 640) and at the frame's group shape (24, 640, 640) beside
+  their byte bounds, then each held against its plain version, V4 and K4
+  beside the bytes their copies read as the kernels count them (a counting
+  launch, its output equal to the plain launch's bit for bit), and V2 held
+  equal to V1 bit for bit
+  (both add the images in order); V1 and V2 beside torch.sum, with their
+  library_ratio (kernel ms / library ms).
 - microops: the five data movements of runs/prof_microops.py (transpose,
   double transpose, row roll, column roll, flip;
   litbox_tpu_torch/prof/microops.py) at the script's (64, 640, 640), the
@@ -139,6 +144,9 @@ COUNTERS = {"attenuation_scan_rows": attnscan.attenuation_scan_rows,
 # Operations per image and output texel of the fused rotation: 7 two-tap
 # lerps (3 each) and 7 shift evaluations (4 each), csrc/rotfused.cu.
 ROT3_OPS = 49
+# A traced delta of 1.2 rad: residuals up to pi/4 + 1.2, whose windows exceed
+# K4's stages, so most images take the kernel's general (tap) path.
+LARGE_DELTA = 1.2
 UNET_SEED = 5
 # The card's resolve against the plain resolve on CPU copies, relative to
 # its maximum: both are float32 roundings of one sum (1.25e-6 at S=640 on
@@ -353,6 +361,19 @@ def check_shear_reduce(gen, n, s, row_lo, row_hi, cold=False) -> dict:
     return out
 
 
+def rot3_counts(chans, base, delta, expect) -> dict:
+    """K4's own counts of its work on these inputs (the kernel's counting
+    instance, csrc/rotfused.cu), whose output must equal `expect` bit for
+    bit: the share of (image, tile) windows it took by the tap path and the
+    bytes its staged windows' copies read per output texel and image."""
+    counts = torch.zeros(4, dtype=torch.int64, device="cuda")
+    if not torch.equal(rotate.rotate_planar_sum_fused(chans, base, delta, counts), expect):
+        raise AssertionError("rotate_planar_sum_fused: the counting launch differs")
+    windows, staged, texels, copied = counts.tolist()
+    return dict(counted_general_share=1 - staged / windows,
+                counted_bytes_per_staged_texel=copied / texels if texels else None)
+
+
 def check_rotfused(gen, s, stride, delta) -> dict:
     """K4 on 3 channels of the bins 0, stride, 2*stride, ... of N_BINS."""
     base = tuple(-i * 2 * np.pi / N_BINS for i in range(0, N_BINS, stride))
@@ -381,9 +402,15 @@ def check_rotfused(gen, s, stride, delta) -> dict:
     lib = library()
     runs = len(rotate._quadrant_groups(base))
     b, by = bound(4 * (3 * d * s * s + 3 * runs * s * s), ROT3_OPS * 3 * d * s * s)
+    got = run()
+    if not torch.equal(got, run()):
+        raise AssertionError("rotate_planar_sum_fused: two calls differ")
+    counted = rot3_counts(chans, base, delta, got)
     out.update(shape=f"3x({d},{s},{s}) runs {runs} delta "
                      f"{float(delta):.6f}{' (tensor)' if torch.is_tensor(delta) else ''}",
-               ms=time_ms(run), plain_ms=time_ms(plain), bound_ms=b, bound_by=by,
+               equals_plain_bits=bool(torch.equal(got, ref)), repeat_equal_bits=True,
+               **counted, ms=time_ms(run), plain_ms=time_ms(plain), bound_ms=b,
+               bound_by=by,
                library_ms=time_ms(library),
                library="F.affine_grid + F.grid_sample, summed",
                library_max_dev_rel=float((lib - ref).abs().max() / ref.abs().max()),
@@ -402,7 +429,8 @@ def kernels_phase() -> dict:
     # source, 3*8 images, rows 128..512; K2 and K3 there from a flushed L2,
     # since their inputs (39 MB, 24 MB) fit the 50 MB L2.
     # K4: bench.py's and the realtime resolve shapes, with delta 0 and a
-    # traced delta of -0.3 bins, and the realtime shape at 1/4 of the bins.
+    # traced delta of -0.3 bins, the realtime shape at 1/4 of the bins, and
+    # with LARGE_DELTA (residuals past the stages' reach: the general path).
     jitter = -0.3 * 2 * np.pi / d
     results = {
         "attenuation_scan_rows": (check_scan(gen, d, 384, 1, 0, 1),
@@ -416,7 +444,7 @@ def kernels_phase() -> dict:
         "rotate_planar_sum_fused": (
             check_rotfused(gen, 384, 1, 0.0), check_rotfused(gen, 640, 1, 0.0),
             check_rotfused(gen, 384, 1, jitter), check_rotfused(gen, 640, 1, jitter),
-            check_rotfused(gen, 640, 4, 0.0)),
+            check_rotfused(gen, 640, 4, 0.0), check_rotfused(gen, 640, 1, LARGE_DELTA)),
     }
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -999,9 +1027,11 @@ def production_phase() -> dict:
 def rotfused_split_phase() -> tuple[dict, dict]:
     """runs/prof_rotfused.py on the card: V1-V4 and K4 on the same images,
     at the script's (384, 640, 640) and at the frame's group shape
-    (24, 640, 640), timed from device memory (the group shape is under the
-    L2 size, so the cache is flushed before each timed call), then each held
-    against its plain version. Returns (launches, per-kernel cases)."""
+    (24, 640, 640), K4 also with LARGE_DELTA, timed from device memory (the
+    group shape is under the L2 size, so the cache is flushed before each
+    timed call), then each held against its plain version, V4 and K4 beside
+    the bytes their copies read per image texel as the kernels count them.
+    Returns (launches, per-kernel cases)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     reset_counts()
     cases = {name: [] for name in SPLIT + ("rotate_planar_sum_fused",)}
@@ -1028,9 +1058,13 @@ def rotfused_split_phase() -> tuple[dict, dict]:
                 shape=f"({n},{s},{s})", ms=time_ms(lambda: fn(*args[name]), cold=True),
                 bound_ms=b, bound_by=by))
         b, by = bound(plane * (n + 3 * runs), ROT3_OPS * n * s * s)
-        cases["rotate_planar_sum_fused"].append(dict(
-            shape=f"3x({d},{s},{s}) runs {runs}", bound_ms=b, bound_by=by,
-            ms=time_ms(lambda: rotate.rotate_planar_sum_fused(chans, base, 0.0), cold=True)))
+        # K4 with delta 0 and with LARGE_DELTA as a tensor (the general path).
+        for delta in (0.0, torch.tensor(LARGE_DELTA, device="cuda")):
+            cases["rotate_planar_sum_fused"].append(dict(
+                shape=f"3x({d},{s},{s}) runs {runs} delta {float(delta)}",
+                bound_ms=b, bound_by=by,
+                ms=time_ms(lambda: rotate.rotate_planar_sum_fused(chans, base, delta),
+                           cold=True)))
         inputs.append((img, args, chans, base))
     torch.cuda.synchronize()
     launches = read_counts()
@@ -1056,12 +1090,21 @@ def rotfused_split_phase() -> tuple[dict, dict]:
                 f"transpose2_accum differs from copy_accum at {tuple(img.shape)}: "
                 f"max_abs_err {float((v1 - v2).abs().max())}")
         cases["transpose2_accum"][i]["equals_copy_accum"] = True
-        plain = lambda: rotate.rotate_planar_sum_fused_plain(chans, base, 0.0)
-        cases["rotate_planar_sum_fused"][i].update(
-            compare("rotate_planar_sum_fused",
-                    rotate.rotate_planar_sum_fused(chans, base, 0.0), plain()),
-            plain_ms=time_ms(plain, reps=3, warmup=1), library_ms=None,
-            library_ratio=None)
+        # V4's count of the bytes its copies read, from a counting launch
+        # whose output must equal the plain launch's bit for bit.
+        counts = torch.zeros(1, dtype=torch.int64, device="cuda")
+        if not torch.equal(rotfused.shear3_accum(*args["shear3_accum"], counts),
+                           rotfused.shear3_accum(*args["shear3_accum"])):
+            raise AssertionError("shear3_accum: the counting launch differs")
+        cases["shear3_accum"][i]["counted_bytes_per_texel"] = counts.item() / img.numel()
+        for j, delta in enumerate((0.0, torch.tensor(LARGE_DELTA, device="cuda"))):
+            plain = lambda: rotate.rotate_planar_sum_fused_plain(chans, base, delta)
+            got = rotate.rotate_planar_sum_fused(chans, base, delta)
+            cases["rotate_planar_sum_fused"][2 * i + j].update(
+                compare("rotate_planar_sum_fused", got, plain()),
+                **rot3_counts(chans, base, delta, got),
+                plain_ms=time_ms(plain, reps=3, warmup=1), library_ms=None,
+                library_ratio=None)
     del inputs
     torch.cuda.empty_cache()
     return launches, cases

@@ -41,12 +41,32 @@
 //       an image, measured slower on an H100 80GB HBM3 at 700 W.
 //   V3: one thread per output texel, two taps of each image's row in image
 //       order (the lanes of a warp read one row, coalesced).
-//   V4: one block per row y. The row of image d is staged in shared memory
-//       (S floats, 2.5 KB at S=640); the three shears run shared memory to
-//       shared memory, the last into a register accumulator; the next
-//       image's row is loaded into registers while the current one is
-//       sheared. Set beside K4, which evaluates its composite as 8 taps per
-//       texel through L1 and stages nothing.
+//   V4: a block per row y, four warps each summing a contiguous quarter of
+//       the images (images [g * ceil(N/4), (g + 1) * ceil(N/4)) for warp g)
+//       in image order; the block adds the four partials in warp order,
+//       ((p0 + p1) + p2) + p3, so the sum order is fixed and two calls agree
+//       bit for bit. All three shears are along x, so each shift is uniform
+//       over the row: computed once a row and image, its floor j splits into
+//       a chunk offset j >> 2 and a float offset j & 3 (a template
+//       argument: the taps are fixed floats of each chunk pair). A warp
+//       keeps its next image's row in flight through a ring of two windows
+//       in shared memory, filled by 16-byte cp.async copies (4-byte ones
+//       where rows are not 16-byte aligned), each window the row shifted by
+//       the first shear's chunk offset, zero outside the row. The three
+//       shears run in place in the window, the last into registers (each
+//       lane takes its taps before any lane writes), lane l owning L
+//       consecutive 16-byte chunks (L odd, so that the lanes' 16-byte reads
+//       and writes are conflict-free): L + 1 16-byte reads give its L output
+//       chunks. Each shear's output window is pre-shifted by the next
+//       shear's chunk offset, and the zero-outside rule is a valid chunk
+//       range, applied by predicates and selects (no branches). Only
+//       __syncwarp inside the image loop; one block barrier before the
+//       partials are added. S <= 1024. On an H100 80GB HBM3 at 700 W
+//       (chip_smoke.py, a one-row-a-block design before: 0.52 ms): 0.24 ms
+//       at (384, 640, 640), 79% of the bound; with the shears removed the
+//       copies alone take V1's 0.22 ms. A ring of three windows, eight or
+//       two warps a row, a separate window for the first shear's output and
+//       per-chunk branches all measured slower there.
 
 #include <cuda_runtime.h>
 
@@ -58,8 +78,9 @@ constexpr int kTile = litbox::kRingTile;
 constexpr int kRows = litbox::kRingRows;  // threads per tile column in V2
 constexpr int kStages = 6;        // V2's ring: 5 images' tiles in flight a block
 constexpr int kThreads = 256;
-constexpr int kRowThreads = 256;  // V4 block
-constexpr int kRowVals = 4;       // V4: values of a row per thread, S <= 1024
+constexpr int kV4Warps = 4;   // V4: warps a row, each summing a quarter of the images
+constexpr int kV4Ring = 2;    // V4: staged rows a warp, one in flight while one is sheared
+constexpr int kV4MaxS = 1024;
 
 __global__ void __launch_bounds__(kThreads)
 copy_accum_kernel(const float4* __restrict__ img, float4* __restrict__ out,
@@ -165,73 +186,212 @@ shear1_accum_kernel(const float* __restrict__ img, const float* __restrict__ alp
   out[(size_t)y * s + x] = acc;
 }
 
-// One x-shear of a staged row: dst[x] for the threads' columns.
-__device__ __forceinline__ float row_shear(const float* __restrict__ src, int x,
-                                           float sh, int s) {
-  const float fi = floorf(sh);
-  const int x0 = x + (int)fi;
-  const float f = sh - fi;
-  const float v0 = (x0 >= 0 && x0 < s) ? src[x0] : 0.f;
-  const float v1 = (x0 + 1 >= 0 && x0 + 1 < s) ? src[x0 + 1] : 0.f;
-  return lerp_taps(v0, v1, f);
+struct V4Args {
+  const float* img;
+  const float* alpha;
+  const float* beta;
+  float* out;
+  int n, s;
+  int chunks;  // C = ceil(S / 4): 16-byte chunks a row
+  int window;  // C + 1: chunks a window (the last shear's taps reach chunk C)
+  float center, lim;  // S / 2; S + 2, the shift clamp
+  unsigned long long* counts;  // kStats: counts[0] += bytes the copies read
+};
+
+__device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+
+// One x-shear of a warp's window, in place. Window chunks c and c + 1 hold
+// the floats the shear's output chunk c taps, kK floats in; window chunk w
+// then gets output chunk c = w + q (q: the next shear's chunk offset), zero
+// where c lies outside [0, C) (and, for kVec false, at floats >= S). Lane l
+// writes window chunks [L l, L l + L), lane 31 also chunk 32 L (the
+// window's last when C = 32 L): L + 1 (+ 1) 16-byte reads, strided by L
+// (odd) across lanes, all taken before any lane writes. No branches: the
+// range checks are predicates and selects.
+template <int L, int kK, bool kVec>
+__device__ __forceinline__ void shear_window(float4* win, int q, float f, int lane,
+                                             const V4Args& p) {
+  const int w0 = L * lane;
+  float4 v[L + 2];
+#pragma unroll
+  for (int u = 0; u < L + 2; ++u) {
+    const int c = w0 + q + u;
+    v[u] = (unsigned)c <= (unsigned)p.chunks && (u <= L || lane == 31) ? win[c] : zero4();
+  }
+  __syncwarp();  // every lane holds its taps: the window is rewritten in place
+#pragma unroll
+  for (int u = 0; u <= L; ++u) {
+    const int w = w0 + u, c = w + q;
+    float4 o = litbox::lerp4<kK>(v[u], v[u + 1], f);
+    const bool in = (unsigned)c < (unsigned)p.chunks;
+    o.x = in ? o.x : 0.f;
+    o.y = in ? o.y : 0.f;
+    o.z = in ? o.z : 0.f;
+    o.w = in ? o.w : 0.f;
+    if (!kVec) {  // floats of chunk c past the row's end
+      const int rem = p.s - 4 * c;
+      if (rem < 4) o.w = 0.f;
+      if (rem < 3) o.z = 0.f;
+      if (rem < 2) o.y = 0.f;
+    }
+    if (w < p.window && (u < L || lane == 31)) win[w] = o;
+  }
 }
 
-__global__ void __launch_bounds__(kRowThreads)
-shear3_accum_kernel(const float* __restrict__ img, const float* __restrict__ alpha,
-                    const float* __restrict__ beta, float* __restrict__ out,
-                    int n, int s) {
-  extern __shared__ float smem[];
-  float* b0 = smem;
-  float* b1 = smem + s;
+// The last x-shear of a warp's window, added to the lane's L output chunks.
+template <int L, int kK>
+__device__ __forceinline__ void shear_add(const float4* src, float4* acc, float f, int lane,
+                                          const V4Args& p) {
+  const int w0 = L * lane;
+  float4 v[L + 1];
+#pragma unroll
+  for (int u = 0; u <= L; ++u) v[u] = w0 + u <= p.chunks ? src[w0 + u] : zero4();
+#pragma unroll
+  for (int u = 0; u < L; ++u) {
+    const float4 o = litbox::lerp4<kK>(v[u], v[u + 1], f);
+    acc[u] = make_float4(__fadd_rn(acc[u].x, o.x), __fadd_rn(acc[u].y, o.y),
+                         __fadd_rn(acc[u].z, o.z), __fadd_rn(acc[u].w, o.w));
+  }
+}
+
+template <int L, bool kVec>
+__device__ __forceinline__ void shear_window_k(int k, float4* win, int q, float f, int lane,
+                                               const V4Args& p) {
+  switch (k) {  // warp-uniform
+    case 0: shear_window<L, 0, kVec>(win, q, f, lane, p); break;
+    case 1: shear_window<L, 1, kVec>(win, q, f, lane, p); break;
+    case 2: shear_window<L, 2, kVec>(win, q, f, lane, p); break;
+    default: shear_window<L, 3, kVec>(win, q, f, lane, p); break;
+  }
+}
+
+template <int L>
+__device__ __forceinline__ void shear_add_k(int k, const float4* src, float4* acc, float f,
+                                            int lane, const V4Args& p) {
+  switch (k) {
+    case 0: shear_add<L, 0>(src, acc, f, lane, p); break;
+    case 1: shear_add<L, 1>(src, acc, f, lane, p); break;
+    case 2: shear_add<L, 2>(src, acc, f, lane, p); break;
+    default: shear_add<L, 3>(src, acc, f, lane, p); break;
+  }
+}
+
+// Stage row `row` shifted by q chunks: window chunk w holds the row's floats
+// 4 (q + w) .. + 3, zero outside the row. Returns the bytes the lane's copies
+// read from the row (zero-fills read none).
+template <bool kVec>
+__device__ __forceinline__ int stage_row(float4* win, const float* row, int q, int lane,
+                                         const V4Args& p) {
+  int bytes = 0;
+  if (kVec) {
+    for (int w = lane; w < p.window; w += 32) {
+      const int a = q + w;
+      const bool ok = (unsigned)a < (unsigned)p.chunks;
+      litbox::cp_async16_l2(win + w, row + 4 * min(max(a, 0), p.chunks - 1), ok);
+      bytes += ok ? 16 : 0;
+    }
+  } else {
+    float* dst = reinterpret_cast<float*>(win);
+    for (int v = lane; v < 4 * p.window; v += 32) {
+      const int x = 4 * q + v;
+      const bool ok = (unsigned)x < (unsigned)p.s;
+      litbox::cp_async4(dst + v, row + min(max(x, 0), p.s - 1), ok);
+      bytes += ok ? 4 : 0;
+    }
+  }
+  return bytes;
+}
+
+// out[y] = sum_d X_a(X_b(X_a(img[d])))[y]: a block per row y; see the design
+// note. Shared memory: per warp kV4Ring windows of C + 1 chunks.
+template <bool kVec, int L, bool kStats>
+__global__ void __launch_bounds__(32 * kV4Warps) shear3_accum_kernel(V4Args p) {
+  extern __shared__ float4 smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int y = blockIdx.x;
-  const float yc = (float)y + 0.5f - 0.5f * (float)s;
-  float acc[kRowVals] = {0.f, 0.f, 0.f, 0.f};
-  float next[kRowVals];
+  const int per = (p.n + kV4Warps - 1) / kV4Warps;
+  const int lo = min(p.n, warp * per), cnt = min(p.n, lo + per) - lo;
+  const float rc = litbox::offset_of(y, p.center);
+  const size_t plane = (size_t)p.s * p.s;
+  const float* row0 = p.img + (size_t)lo * plane + (size_t)y * p.s;
+  float4* ring = smem + (size_t)warp * kV4Ring * p.window;
+  litbox::Coefs alphas(p.alpha + lo, cnt, lane), betas(p.beta + lo, cnt, lane);
+
+  // taps[i]: the first (and last) shear's shift of image k + i, whose row
+  // is staged or in flight.
+  litbox::Shift taps[kV4Ring - 1];
+  unsigned long long copied = 0;  // kStats only
+  auto issue = [&](int q) {
+    const litbox::Shift t = litbox::shift_of(alphas.at(q, lane), rc, p.lim);
+    copied += stage_row<kVec>(ring + (q % kV4Ring) * p.window, row0 + q * plane, t.j >> 2,
+                              lane, p);
+    return t;
+  };
 #pragma unroll
-  for (int k = 0; k < kRowVals; ++k) {
-    const int x = threadIdx.x + k * kRowThreads;
-    next[k] = (x < s && n > 0) ? __ldg(img + (size_t)y * s + x) : 0.f;
+  for (int q = 0; q < kV4Ring - 1; ++q) {
+    if (q < cnt) taps[q] = issue(q);
+    litbox::cp_async_commit();
   }
-  for (int d = 0; d < n; ++d) {
+  float4 acc[L];
 #pragma unroll
-    for (int k = 0; k < kRowVals; ++k) {
-      const int x = threadIdx.x + k * kRowThreads;
-      if (x < s) b0[x] = next[k];
-    }
-    __syncthreads();
-    if (d + 1 < n) {  // the next image's row, in flight during the shears
-      const float* row = img + ((size_t)(d + 1) * s + y) * s;
+  for (int u = 0; u < L; ++u) acc[u] = zero4();
+  for (int k = 0; k < cnt; ++k) {
+    litbox::cp_async_wait<kV4Ring - 2>();
+    __syncwarp();  // image k's row is visible, and image k - 1's slot free
+    const litbox::Shift ta = taps[0];
 #pragma unroll
-      for (int k = 0; k < kRowVals; ++k) {
-        const int x = threadIdx.x + k * kRowThreads;
-        if (x < s) next[k] = __ldg(row + x);
-      }
-    }
-    const float sa = __ldg(alpha + d) * yc;
-    const float sb = __ldg(beta + d) * yc;
-#pragma unroll
-    for (int k = 0; k < kRowVals; ++k) {
-      const int x = threadIdx.x + k * kRowThreads;
-      if (x < s) b1[x] = row_shear(b0, x, sa, s);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kRowVals; ++k) {
-      const int x = threadIdx.x + k * kRowThreads;
-      if (x < s) b0[x] = row_shear(b1, x, sb, s);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kRowVals; ++k) {
-      const int x = threadIdx.x + k * kRowThreads;
-      if (x < s) acc[k] += row_shear(b0, x, sa, s);
-    }
-    __syncthreads();  // b0 is overwritten by the next image
+    for (int i = 0; i + 1 < kV4Ring - 1; ++i) taps[i] = taps[i + 1];
+    if (k + kV4Ring - 1 < cnt) taps[kV4Ring - 2] = issue(k + kV4Ring - 1);
+    litbox::cp_async_commit();
+    const litbox::Shift tb = litbox::shift_of(betas.at(k, lane), rc, p.lim);
+    float4* win = ring + (k % kV4Ring) * p.window;
+    shear_window_k<L, kVec>(ta.j & 3, win, tb.j >> 2, ta.f, lane, p);
+    __syncwarp();
+    shear_window_k<L, kVec>(tb.j & 3, win, ta.j >> 2, tb.f, lane, p);
+    __syncwarp();
+    shear_add_k<L>(ta.j & 3, win, acc, ta.f, lane, p);
   }
+  // The warps' partials, added in warp order.
+  __syncwarp();  // the last window is read
+  const int w0 = L * lane;
 #pragma unroll
-  for (int k = 0; k < kRowVals; ++k) {
-    const int x = threadIdx.x + k * kRowThreads;
-    if (x < s) out[(size_t)y * s + x] = acc[k];
+  for (int u = 0; u < L; ++u)
+    if (w0 + u < p.chunks) ring[w0 + u] = acc[u];
+  __syncthreads();
+  const float* part = reinterpret_cast<const float*>(smem);
+  const size_t stride = (size_t)kV4Ring * p.window * 4;  // floats between partials
+  for (int x = threadIdx.x; x < p.s; x += 32 * kV4Warps) {
+    float sum = part[x];
+#pragma unroll
+    for (int g = 1; g < kV4Warps; ++g) sum = __fadd_rn(sum, part[g * stride + x]);
+    p.out[(size_t)y * p.s + x] = sum;
+  }
+  if (kStats) litbox::count_add(p.counts, copied);
+}
+
+template <bool kVec, int L>
+int launch_shear3(const V4Args& p, cudaStream_t stream) {
+  const size_t smem = (size_t)kV4Warps * kV4Ring * p.window * sizeof(float4);
+  const auto kernel = p.counts ? shear3_accum_kernel<kVec, L, true>
+                               : shear3_accum_kernel<kVec, L, false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)p.s, 32 * kV4Warps, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <bool kVec>
+int launch_shear3_vec(const V4Args& p, cudaStream_t stream) {
+  // L: the least odd number with 32 L >= C.
+  switch (((p.chunks + 31) / 32) | 1) {
+    case 1: return launch_shear3<kVec, 1>(p, stream);
+    case 3: return launch_shear3<kVec, 3>(p, stream);
+    case 5: return launch_shear3<kVec, 5>(p, stream);
+    case 7: return launch_shear3<kVec, 7>(p, stream);
+    default: return launch_shear3<kVec, 9>(p, stream);
   }
 }
 
@@ -274,14 +434,28 @@ extern "C" int litbox_prof_shear1_accum(const float* img, const float* alpha,
   return (int)cudaGetLastError();
 }
 
-// s <= kRowThreads * kRowVals (1024).
+// s <= 1024; any s: 16-byte copies where s % 4 == 0 and img is 16-byte
+// aligned, 4-byte copies otherwise. counts: null, or one device uint64 to
+// which the kernel adds the bytes its copies read (a separate instance: the
+// counting costs the plain launch nothing).
 extern "C" int litbox_prof_shear3_accum(const float* img, const float* alpha,
                                         const float* beta, float* out, int n,
-                                        int s, void* stream) {
-  if (s > kRowThreads * kRowVals) return (int)cudaErrorInvalidValue;
-  if (s > 0) {
-    shear3_accum_kernel<<<(unsigned)s, kRowThreads, 2 * s * sizeof(float),
-                          (cudaStream_t)stream>>>(img, alpha, beta, out, n, s);
-  }
-  return (int)cudaGetLastError();
+                                        int s, unsigned long long* counts, void* stream) {
+  if (s > kV4MaxS || n < 0) return (int)cudaErrorInvalidValue;
+  if (s == 0) return (int)cudaGetLastError();
+  V4Args p;
+  p.img = img;
+  p.alpha = alpha;
+  p.beta = beta;
+  p.out = out;
+  p.n = n;
+  p.s = s;
+  p.chunks = (s + 3) / 4;
+  p.window = p.chunks + 1;
+  p.center = s / 2.0f;
+  p.lim = (float)(s + 2);
+  p.counts = counts;
+  if (s % 4 == 0 && litbox::aligned16(img))
+    return launch_shear3_vec<true>(p, (cudaStream_t)stream);
+  return launch_shear3_vec<false>(p, (cudaStream_t)stream);
 }

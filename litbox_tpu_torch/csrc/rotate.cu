@@ -58,6 +58,10 @@ constexpr int kShearLaneChunks = 5;   // shear_kernel: 16-byte output chunks a l
 constexpr int kReduceLaneChunks = 2;  // shear_reduce_kernel: the same
 constexpr int kRing = 3;              // staged windows a warp in shear_reduce_kernel
 
+using litbox::cp_async16_l2;
+using litbox::lerp_tap;
+using litbox::Coefs;
+
 struct ShearArgs {
   const float* img;
   const float* coef;
@@ -87,20 +91,12 @@ struct Tap {
 };
 
 __device__ __forceinline__ float row_center(int r, const ShearArgs& p) {
-  return __fsub_rn(__fadd_rn((float)(r / p.row_div), 0.5f), p.center);
+  return litbox::offset_of(r / p.row_div, p.center);
 }
 
 __device__ __forceinline__ Tap row_tap(float coef, float rc, const ShearArgs& p) {
-  const float s = __fmul_rn(coef, rc);
-  const float fi = floorf(s);
-  const float lim = (float)(p.n_texels + 2);
-  return {(int)fminf(fmaxf(fi, -lim), lim) * p.elem_scale, __fsub_rn(s, fi)};
-}
-
-// (1 - f) * a + f * b with its rounding pinned: shear and shear_reduce both
-// call it, so their taps agree bit for bit.
-__device__ __forceinline__ float lerp_tap(float a, float b, float f) {
-  return __fmaf_rn(b, f, __fmul_rn(a, __fsub_rn(1.f, f)));
+  const litbox::Shift s = litbox::shift_of(coef, rc, (float)(p.n_texels + 2));
+  return {s.j * p.elem_scale, s.f};
 }
 
 // x[m] = v[k + m] for m < 5, where v[0..7] is lo then hi and 0 <= k < 4.
@@ -123,14 +119,6 @@ __device__ __forceinline__ float4 lerp_chunk(float4 lo, float4 hi, int k, float 
   funnel(lo, hi, k, x);
   return make_float4(lerp_tap(x[0], x[1], f), lerp_tap(x[1], x[2], f),
                      lerp_tap(x[2], x[3], f), lerp_tap(x[3], x[4], f));
-}
-
-// A 16-byte cp.async (tile_ring.cuh's cp_async16) that also asks L2 to fetch
-// the 256-byte block around it: a window is a contiguous run of chunks.
-__device__ __forceinline__ void cp_async16_l2(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
 }
 
 // Stage image row `row`'s window for a warp whose first output chunk is c0
@@ -182,11 +170,7 @@ __device__ __forceinline__ void add_image(float4* acc, const float4* win, int la
 #pragma unroll
   for (int u = 0; u < kReduceLaneChunks; ++u) {
     if (u < lane_chunks) {
-      const float4 lo = win[lane + 32 * u], hi = win[lane + 32 * u + 1];
-      const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-      const float4 o = make_float4(
-          lerp_tap(v[kK], v[kK + 1], f), lerp_tap(v[kK + 1], v[kK + 2], f),
-          lerp_tap(v[kK + 2], v[kK + 3], f), lerp_tap(v[kK + 3], v[kK + 4], f));
+      const float4 o = litbox::lerp4<kK>(win[lane + 32 * u], win[lane + 32 * u + 1], f);
       acc[u] = first ? o : add4(acc[u], o);
     }
   }
@@ -244,28 +228,6 @@ __global__ void __launch_bounds__(32 * kWarps) shear_kernel(ShearArgs p) {
       store_chunk<true>(dst, c, lerp_chunk(lo[u], hi[u], t.j & 3, t.f), p);
   }
 }
-
-// coef[d0 + q] for q = 0, 1, 2, ... in turn: lane l holds coef[d0 + base + l]
-// and the next 32, so a coefficient costs a shuffle, and each load is issued
-// 32 images before it is read.
-struct Coefs {
-  const float* c;
-  int n, base;
-  float cur, nxt;
-  __device__ __forceinline__ Coefs(const float* coef, int n_per, int lane)
-      : c(coef), n(n_per), base(0) {
-    cur = lane < n ? __ldg(c + lane) : 0.f;
-    nxt = 32 + lane < n ? __ldg(c + 32 + lane) : 0.f;
-  }
-  __device__ __forceinline__ float at(int q, int lane) {
-    if (q >= base + 32) {  // warp-uniform: q grows by one a call
-      base += 32;
-      cur = nxt;
-      nxt = base + 32 + lane < n ? __ldg(c + base + 32 + lane) : 0.f;
-    }
-    return __shfl_sync(0xffffffffu, cur, q & 31);
-  }
-};
 
 // Everything else (shear_reduce; shear on odd widths, unaligned rows or
 // e > 1): a warp per (group, output row, row segment) walks the group's

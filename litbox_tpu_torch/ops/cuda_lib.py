@@ -36,11 +36,11 @@ _SIGNATURES = {
     "litbox_attnscan_rows": [_P] * 7 + [_I] * 6 + [_P],
     "litbox_shear": [_P] * 3 + [_I] * 6 + [_P],
     "litbox_shear_reduce": [_P] * 3 + [_I] * 9 + [_P],
-    "litbox_rot3sum": [_P] * 4 + [_I] * 4 + [_P] * 2,
+    "litbox_rot3sum": [_P] * 4 + [_I] * 4 + [_P] * 3,
     "litbox_prof_copy_accum": [_P] * 2 + [_I] * 2 + [_P],
     "litbox_prof_transpose2_accum": [_P] * 2 + [_I] * 2 + [_P],
     "litbox_prof_shear1_accum": [_P] * 3 + [_I] * 2 + [_P],
-    "litbox_prof_shear3_accum": [_P] * 4 + [_I] * 2 + [_P],
+    "litbox_prof_shear3_accum": [_P] * 4 + [_I] * 2 + [_P] * 2,
     "litbox_prof_transpose": [_P] * 2 + [_I] * 2 + [_P],
     "litbox_prof_transpose2": [_P] * 2 + [_I] * 2 + [_P],
     "litbox_prof_roll_rows": [_P] * 3 + [_I] * 2 + [_P],
@@ -112,6 +112,19 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = library().litbox_cuda_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}: {msg}")
+
+
+def counts_pointer(name: str, counts, n: int, device) -> int:
+    """The device address of a kernel's optional counts: None gives 0 (the
+    kernel counts nothing), else `counts` must be a contiguous int64 tensor
+    of n on `device`, to which the kernel adds."""
+    if counts is None:
+        return 0
+    if (counts.device != device or counts.dtype != torch.int64
+            or tuple(counts.shape) != (n,) or not counts.is_contiguous()):
+        raise ValueError(f"{name}: counts must be a contiguous int64 ({n},) tensor "
+                         f"on {device}")
+    return counts.data_ptr()
 
 
 def stream_handle(device) -> int:

@@ -29,10 +29,15 @@ Pallas roll loop) bounds nothing here.
 the whole-image three-shear rotation summed per quadrant run, CUDA C++ in
 `csrc/rotfused.cu`. It is bound by bytes (one read of every input plane and
 one write of each run's partial: 654 MB at 3 x (128, 640, 640), 0.195 ms at
-3.35 TB/s). A 640^2 plane does not fit in a block's shared memory, so the
-kernel stages nothing: one thread per output texel evaluates the composite
-of the three shears as 8 taps of each image of its run and sums them in bin
-order, with no intermediate planes in device memory and no atomics.
+3.35 TB/s). One launch covers every channel and run: a block owns a 32x32
+output tile of one channel and one run, stages the source window its
+composite reaches for each image of the run (cp.async, a ring of two),
+runs the first two shears a column at a time into a shared tile and the
+last into register accumulators, in bin order, with no intermediate planes
+in device memory and no atomics. An image whose window does not fit a stage
+(coefficients beyond the bins' residuals) is evaluated as 8 taps a texel
+in the same kernel, chosen on the device, so `delta` may be any tensor and
+is never read on the host.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor takes the kernel
 or the call raises.
@@ -278,7 +283,7 @@ def rotate_planar_sum_fused_plain(channels: tuple, base_angles: tuple,
 
 
 def rotate_planar_sum_fused(channels: tuple, base_angles: tuple,
-                            delta) -> torch.Tensor:
+                            delta, counts: torch.Tensor | None = None) -> torch.Tensor:
     """Fused planar rotate-and-accumulate: sum_d R(base_angles[d] + delta)
     applied to image d of each channel plane; returns (C, S, S).
 
@@ -287,9 +292,17 @@ def rotate_planar_sum_fused(channels: tuple, base_angles: tuple,
     rotates the R <= 5 run partials by their quadrant instead (rotations
     about a common center commute, up to interpolation order). Any delta
     works: the shifts have no static bound. base_angles are static; `delta`
-    is a float or a 0-d tensor.
+    is a float or a 0-d tensor. At most 8 runs; one launch for up to 8
+    channels.
+
+    `counts`, for measurement: an int64 (4,) tensor on the channels' card to
+    which the kernel adds the (image, tile) windows it took, those it staged,
+    their output texels and the bytes their copies read from device memory.
+    The plain version counts nothing.
     """
     if cuda_lib.on_cpu(*channels):
+        if counts is not None:
+            raise ValueError("rotate_planar_sum_fused: counts come from the kernel only")
         return rotate_planar_sum_fused_plain(channels, base_angles, delta)
     cuda_lib.require_cuda_float32("rotate_planar_sum_fused", *channels)
     d, s = _check_fused(channels, base_angles)
@@ -300,12 +313,13 @@ def rotate_planar_sum_fused(channels: tuple, base_angles: tuple,
     beta = torch.sin(residual).contiguous()
     c, n_runs = len(channels), len(groups)
     out = torch.empty((c, n_runs, s, s), device=dev)
+    counts_ptr = cuda_lib.counts_pointer("rotate_planar_sum_fused", counts, 4, dev)
     ptrs = (ctypes.c_void_p * c)(*[ch.data_ptr() for ch in channels])
     starts = (ctypes.c_int * (n_runs + 1))(*[g[0] for g in groups], d)
     code = cuda_lib.library().litbox_rot3sum(
         ctypes.cast(ptrs, ctypes.c_void_p), alpha.data_ptr(), beta.data_ptr(),
         out.data_ptr(), c, d, s, n_runs, ctypes.cast(starts, ctypes.c_void_p),
-        cuda_lib.stream_handle(dev))
+        counts_ptr, cuda_lib.stream_handle(dev))
     cuda_lib.check(code, "rotate_planar_sum_fused")
     rotate_planar_sum_fused.launches += 1
     return _fused_epilogue(out, groups)

@@ -112,18 +112,29 @@ def shear1_accum(img: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 shear1_accum.launches = 0
 
 
-def shear3_accum(img: torch.Tensor, alpha: torch.Tensor,
-                 beta: torch.Tensor) -> torch.Tensor:
-    """V4: x-shears by alpha, beta and alpha of every image's rows, summed;
-    one row staged in shared memory (S <= 1024)."""
+def shear3_accum(img: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                 counts: torch.Tensor | None = None) -> torch.Tensor:
+    """V4: x-shears by alpha, beta and alpha of every image's rows, summed
+    (S <= 1024). A block per row, four warps each summing a contiguous
+    quarter of the images in order, the partials added in warp order (two
+    calls agree bit for bit). Each warp keeps the next row in flight through
+    a ring of two cp.async windows and runs the three uniform-shift shears
+    in place in the window, the last into registers.
+
+    `counts`, for measurement: an int64 (1,) tensor on the card to which the
+    kernel adds the bytes its copies read from device memory. The plain
+    version counts nothing."""
     if cuda_lib.on_cpu(img, alpha, beta):
+        if counts is not None:
+            raise ValueError("shear3_accum: counts come from the kernel only")
         return shear3_accum_plain(img, alpha, beta)
     n, s, out, stream = _prepare("shear3_accum", img, alpha, beta)
     if s > 1024:
         raise ValueError(f"shear3_accum stages a row of at most 1024, got S={s}")
     cuda_lib.check(cuda_lib.library().litbox_prof_shear3_accum(
         img.data_ptr(), alpha.data_ptr(), beta.data_ptr(), out.data_ptr(), n, s,
-        stream), "shear3_accum")
+        cuda_lib.counts_pointer("shear3_accum", counts, 1, img.device), stream),
+        "shear3_accum")
     shear3_accum.launches += 1
     return out
 

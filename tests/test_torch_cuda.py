@@ -155,6 +155,99 @@ def test_rotate_planar_sum_fused_kernel_matches_plain(dev, s, d, delta):
                                    rtol=0)
 
 
+# K4's edges. Bin sets: "bins" -i 2pi/d for i < d (5 runs over four
+# quadrants), "quarter_turns" -i pi/2 for i < 8 (8 runs of one image, the
+# most the kernel takes). S = 100 leaves partial 32x32 tiles, S = 97 rows that
+# are not 16-byte aligned (4-byte copies). A delta of 1.2 rad puts residuals
+# past the stages' reach, so those images take the kernel's general path.
+K4_EDGES = [(100, "bins", 8, 0.2), (97, "bins", 8, -0.3), (128, "bins", 1, 0.4),
+            (64, "quarter_turns", 8, 0.1), (100, "bins", 8, 1.2), (97, "bins", 4, 1.2),
+            (640, "bins", 16, 1.2), (640, "bins", 16, 0.02)]
+
+
+@pytest.mark.parametrize("s,bins,d,delta", K4_EDGES)
+def test_rotate_planar_sum_fused_kernel_edges(dev, s, bins, d, delta):
+    """K4 at its edges (one image, 8 runs, odd and partial-tile S, windows
+    that do not fit a stage) against its plain version at 2e-5 of the
+    largest magnitude, with a tensor delta; two calls give equal bits."""
+    step = 2 * np.pi / d if bins == "bins" else np.pi / 2
+    base = tuple(-i * step for i in range(d))
+    chans = tuple(_rand(dev, 30 + c, (d, s, s)) for c in range(3))
+    dl = torch.tensor(delta, device=dev)
+    before = rotate.rotate_planar_sum_fused.launches
+    got = rotate.rotate_planar_sum_fused(chans, base, dl)
+    again = rotate.rotate_planar_sum_fused(chans, base, dl)
+    torch.cuda.synchronize()
+    assert rotate.rotate_planar_sum_fused.launches == before + 2
+    assert torch.equal(got, again)
+    ref = rotate.rotate_planar_sum_fused_plain(chans, base, dl)
+    assert got.shape == ref.shape == (3, s, s)
+    torch.testing.assert_close(got, ref, atol=2e-5 * float(ref.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("n,s,spread", [(1, 97, 0.8), (13, 97, 0.8), (1, 1024, 0.8),
+                                        (13, 1024, 0.8), (13, 640, 0.8), (13, 128, 3.0)])
+def test_shear3_accum_kernel_edges(dev, n, s, spread):
+    """V4 at its edges: one image and 13 (not a multiple of the ring or of the
+    four warps a row), rows that are not 16-byte aligned (97), the largest S
+    (1024), and residuals up to 3 rad (shifts past the row). Held to its
+    plain version at 2e-5 of the largest magnitude; two calls give equal
+    bits (the warps' partials are added in a fixed order)."""
+    img = _rand(dev, 25, (n, s, s))
+    resid = _rand(dev, 26, (n,), -spread, spread)
+    alpha, beta = -torch.tan(resid / 2), torch.sin(resid)
+    before = rotfused.shear3_accum.launches
+    got = rotfused.shear3_accum(img, alpha, beta)
+    again = rotfused.shear3_accum(img, alpha, beta)
+    torch.cuda.synchronize()
+    assert rotfused.shear3_accum.launches == before + 2
+    assert torch.equal(got, again)
+    ref = rotfused.shear3_accum_plain(img, alpha, beta)
+    torch.testing.assert_close(got, ref, atol=2e-5 * float(ref.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("delta", [0.0, 1.2])
+def test_rotate_planar_sum_fused_counts(dev, delta):
+    """K4's counting launch gives the plain launch's bits and counts every
+    (channel, image, tile) window once. At delta 0 every window of the bins'
+    residuals is staged; at 1.2 rad some take the tap path. Its copies read
+    some bytes, and a counts tensor of the wrong type raises."""
+    s, d = 640, 16
+    base = tuple(-i * 2 * np.pi / d for i in range(d))
+    chans = tuple(_rand(dev, 40 + c, (d, s, s)) for c in range(3))
+    dl = torch.tensor(delta, device=dev)
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    got = rotate.rotate_planar_sum_fused(chans, base, dl, counts)
+    assert torch.equal(got, rotate.rotate_planar_sum_fused(chans, base, dl))
+    windows, staged, texels, copied = counts.tolist()
+    assert windows == 3 * d * (s // 32) ** 2
+    assert texels == staged * 32 * 32
+    assert copied > 0
+    if delta == 0.0:
+        assert staged == windows
+    else:
+        assert 0 < staged < windows
+    with pytest.raises(ValueError):
+        rotate.rotate_planar_sum_fused(chans, base, dl, counts.float())
+
+
+@pytest.mark.parametrize("spread", [0.0, 0.8])
+def test_shear3_accum_counts(dev, spread):
+    """V4's counting launch gives the plain launch's bits, and its copies
+    read each image row at most once: exactly once with no shift."""
+    n, s = 13, 640
+    img = _rand(dev, 27, (n, s, s))
+    resid = _rand(dev, 28, (n,), -spread, spread) if spread else torch.zeros(n, device=dev)
+    alpha, beta = -torch.tan(resid / 2), torch.sin(resid)
+    counts = torch.zeros(1, dtype=torch.int64, device=dev)
+    got = rotfused.shear3_accum(img, alpha, beta, counts)
+    assert torch.equal(got, rotfused.shear3_accum(img, alpha, beta))
+    if spread:
+        assert 0 < counts.item() <= 4 * img.numel()
+    else:
+        assert counts.item() == 4 * img.numel()
+
+
 # (N, S): S not a multiple of the 32-wide tiles (100), one image, 13 images
 # (not a multiple of V2's 6-stage ring) and an odd S (97: rows that are not
 # 16-byte aligned, V2's 4-byte copies). V1 takes S*S divisible by 4 only.
@@ -262,6 +355,9 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         rotfused.transpose2_accum(img[:, :8].contiguous())
     with pytest.raises(ValueError):                         # not (N, S, S)
         rotfused.transpose2_accum(img[0])
+    with pytest.raises(ValueError):                         # V4 stages S <= 1024
+        big = torch.zeros((1, 1025, 1025), device=dev)
+        rotfused.shear3_accum(big, coef[:1], coef[:1])
 
 
 def test_resolve_on_card_matches_cpu(dev):
