@@ -3,12 +3,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from litbox_tpu_torch/csrc (one nvcc call)
-and runs seven phases, each printed with its wall seconds:
+and runs eight phases, each printed with its wall seconds:
 
 - kernels: each kernel (K1 scan, K2 shear, K3 shear_reduce, K4 fused
   rotate-and-sum) held against its plain PyTorch version at the shapes of
-  bench.py's frame, of the pipeline below and of the realtime 1080p
-  profile's per-frame resolve, each timed (CUDA events, median of 7) beside
+  bench.py's frame, of the pipeline below, of the realtime 1080p
+  profile's per-frame resolve and (K1-K3) of the simulation phase at 256^2
+  (the exact collimated field's one bin at S=1024 and 384, K2 and K3 on
+  interleaved rows; the paired engine's two-tracer scan and the realtime
+  configuration's group of 16 at S=384), each timed (CUDA events, median of 7) beside
   the bound and a library yardstick where one exists; K2 and K3 at the
   per-frame resolve's shape from a flushed L2, K3 held equal to the
   in-order sum of K2's outputs bit for bit, and K4 also with LARGE_DELTA,
@@ -35,6 +38,20 @@ and runs seven phases, each printed with its wall seconds:
   the same frames (the bf16 display held within BF16_DISPLAY_TOL of it),
   8 frames under torch's sync debug mode (none may make the host wait),
   resolve_raw against K1 + K4 at the group shape, and the frame's checks.
+- simulation: engine.Simulation, the README's quickstart (README.md:133-141)
+  at 256^2 with 65,536 photons a tracer, in six configurations: reference
+  (engine "rbt", 32 steps, a convergence measure every 8) and paired
+  ("rbt-paired"): ms a step, photons/s, the first output read, host syncs
+  over 9 steps of a second run, peak memory; collimated (a laser and a
+  directional light added): the per-scene precompute's ms and
+  collimated_direct_raw held against the same composition through the
+  plain versions on the card, the exact field's HDR in vacuum, 8 steps;
+  realtime (jitter ladder, 16 display groups, a display read a step);
+  ai (AIAccelerator, blend "auto", the mono UNet of size 5 with 32
+  features and float32 weights from a fixed seed carried by
+  convert.unet_from_flax): ms an on_step; oracle (the plain march): ms a
+  frame. K1-K3 must be launched by reference and by collimated, and a
+  Simulation on the card must refuse a CPU scene.
 - rotfused_split: the four variants of K4's cost split (V1-V4,
   litbox_tpu_torch/prof/rotfused.py, runs/prof_rotfused.py's kernels) and
   K4 itself (also with a 1.2 rad delta, LARGE_DELTA), timed at
@@ -58,7 +75,11 @@ and runs seven phases, each printed with its wall seconds:
 
 Every kernel counter is set to 0 just before a path is driven and read just
 after; a kernel of the path that was not launched, or any failed check,
-raises, so the exit code is not 0. The lines before the last carry one JSON
+raises, so the exit code is not 0. Each K1-K3 launch's shape and static
+arguments are recorded, in the kernels phase where the kernel is held
+against its plain version and on the paths from frame to simulation; a
+path launch at a shape the kernels phase did not hold raises too (the
+`kernel_signatures` line). The lines before the last carry one JSON
 line per phase, the kernels line and the card's name and power limit; the
 last line is the device record.
 
@@ -73,6 +94,7 @@ litbox_tpu_torch only.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -86,9 +108,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from litbox_tpu_torch import convert
 from litbox_tpu_torch.core import luts
 from litbox_tpu_torch.core.types import REALTIME_1080P
-from litbox_tpu_torch.engine import pipeline, realtime
+from litbox_tpu_torch.engine import Mode, Simulation, pipeline, realtime
 from litbox_tpu_torch.nn.unet import LitboxDenoiserNet
 from litbox_tpu_torch.ops import attnscan, cuda_lib, rotate
 from litbox_tpu_torch.prof import microops, rotfused
@@ -198,6 +221,59 @@ def unlaunched(launches: dict, names) -> list:
     return [n for n in names if launches[n] == 0]
 
 
+# The static shape and arguments of each K1-K3 launch on the card, as the
+# wrapper passes them to the kernel library (the group index left out: it
+# moves the same code over other bins), by where it ran: "checked" where the
+# kernels phase holds the kernel against its plain version, "path" on a main
+# path. main() raises unless every path signature was checked.
+SIGNATURE_ARGS = {  # C entry point: (kernel, the ints that make the key)
+    "litbox_attnscan_rows": ("attenuation_scan_rows", (7, 8, 9, 11, 12)),
+    "litbox_shear": ("shear", tuple(range(3, 9))),
+    "litbox_shear_reduce": ("shear_reduce", tuple(range(3, 12))),
+}
+SIGNATURES = {"checked": set(), "path": set()}
+_recording = [None]
+
+
+class _RecordingLibrary:
+    """The kernel library, with K1-K3's entry points adding their launch's
+    signature to the set being recorded before they launch."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, entry):
+        fn = getattr(self._lib, entry)
+        if entry not in SIGNATURE_ARGS:
+            return fn
+        kernel, positions = SIGNATURE_ARGS[entry]
+
+        def launch(*args):
+            if _recording[0] is not None:
+                SIGNATURES[_recording[0]].add((kernel, tuple(args[i] for i in positions)))
+            return fn(*args)
+        return launch
+
+
+def install_recorders() -> None:
+    """Route the wrappers' `cuda_lib.library()` through _RecordingLibrary."""
+    recorded = _RecordingLibrary(cuda_lib.library())
+    cuda_lib.library = lambda: recorded
+
+
+@contextlib.contextmanager
+def recording(into: str):
+    saved, _recording[0] = _recording[0], into
+    try:
+        yield
+    finally:
+        _recording[0] = saved
+
+
+def unchecked_signatures() -> list:
+    return sorted(SIGNATURES["path"] - SIGNATURES["checked"])
+
+
 def phase(name: str, t0: float, **info) -> None:
     print(f"phase {name} {time.perf_counter() - t0:.3f}s "
           + " ".join(f"{k}={v}" for k, v in info.items()), flush=True)
@@ -280,7 +356,9 @@ def check_scan(gen, d, s, n_groups, group, tracers) -> dict:
     args = dict(group=group, n_groups=n_groups, src_offset=(tracers - 1) * d)
     run = lambda: attnscan.attenuation_scan_rows(t, *srcs, **args)
     plain = lambda: attnscan.attenuation_scan_rows_plain(t, *srcs, **args)
-    out = compare("attenuation_scan_rows", run(), plain())
+    with recording("checked"):
+        got = run()
+    out = compare("attenuation_scan_rows", got, plain())
     cells = d // n_groups * s * s
     b, by = bound(7 * 4 * cells, 10 * cells)
     out.update(shape=f"t({d},{s},{s}) src 3x({tracers * d},{s},{s}) "
@@ -290,15 +368,18 @@ def check_scan(gen, d, s, n_groups, group, tracers) -> dict:
     return out
 
 
-def tap_bytes(coef, s, row_lo, row_hi) -> float:
-    """Bytes of the input rows [row_lo, row_hi) of (N, S, S) images that a
-    shear's taps reach: row r of image d is shifted by j = floor(s) texels,
-    so its taps read texels [max(0, j), min(S, S + j + 1)). The rest of the
-    row is never read (the kernels zero-fill it without a load)."""
-    r = torch.arange(row_lo, row_hi, device=coef.device, dtype=torch.float32)
+def tap_bytes(coef, s, row_lo, row_hi, row_div=1, elem_scale=1) -> float:
+    """Bytes of the input rows [row_lo, row_hi) of (N, R, S * elem_scale)
+    images of S texels a row that a shear's taps reach: row r of image d is
+    shifted by j = floor(coef[d] * (r // row_div + 0.5 - S/2)) texels, so its
+    taps read texels [max(0, j), min(S, S + j + 1)), elem_scale floats each.
+    The rest of the row is never read (the kernels zero-fill it without a
+    load)."""
+    r = torch.div(torch.arange(row_lo, row_hi, device=coef.device), row_div,
+                  rounding_mode="floor").float()
     j = torch.floor(coef[:, None] * ((r + 0.5) - s / 2.0)).clamp(-s - 2, s + 2).long()
     reached = (torch.clamp(s + j + 1, max=s) - torch.clamp(j, min=0)).clamp(min=0)
-    return 4.0 * float(reached.sum())
+    return 4.0 * elem_scale * float(reached.sum())
 
 
 def check_shear(gen, n, s, cold=False) -> dict:
@@ -306,7 +387,9 @@ def check_shear(gen, n, s, cold=False) -> dict:
     coef = (torch.rand((n,), generator=gen, device="cuda") - 0.5) * 1.4
     run = lambda: rotate.shear(img, coef, 1, 1, s)
     plain = lambda: rotate.shear_plain(img, coef, 1, 1, s)
-    out = compare("shear", run(), plain())
+    with recording("checked"):
+        got = run()
+    out = compare("shear", got, plain())
     # Yardstick: grid_sample doing the same row shift (zero padding,
     # align_corners=True so x = lane + shift in pixel units).
     rows = torch.arange(s, device="cuda", dtype=torch.float32)
@@ -334,7 +417,8 @@ def check_shear_reduce(gen, n, s, row_lo, row_hi, cold=False) -> dict:
     args = (1, 1, s, rotate.ALPHA_BOUND, row_lo, row_hi, 3)
     run = lambda: rotate.shear_reduce(img, coef, *args)
     plain = lambda: rotate.shear_reduce_plain(img, coef, *args)
-    got = run()
+    with recording("checked"):
+        got = run()
     out = compare("shear_reduce", got, plain())
     # K3 rounds each tap as K2 rounds its output and adds in image order, so
     # it equals the in-order sum of K2's outputs bit for bit.
@@ -358,6 +442,47 @@ def check_shear_reduce(gen, n, s, row_lo, row_hi, cold=False) -> dict:
                bound_ms=b, bound_by=by,
                bound_full_rows_ms=bound(4 * (n * rows * s + 3 * rows * s), 0)[0],
                equals_shear_sum=True, read_floor_ms=floor_ms, library_ms=None)
+    return out
+
+
+def check_shear_interleaved(gen, s, row_div, elem_scale) -> dict:
+    """K2 on one channel-interleaved image, as rotate_bins runs it on the
+    exact collimated field: the x shear (1, S, 3S) at elem_scale 3 or the y
+    shear (1, 3S, S) at row_div 3. No single PyTorch call shears this
+    layout, so library_ms is null."""
+    rows, width = s * row_div, s * elem_scale
+    img = torch.rand((1, rows, width), generator=gen, device="cuda")
+    coef = (torch.rand((1,), generator=gen, device="cuda") - 0.5) * 1.4
+    run = lambda: rotate.shear(img, coef, row_div, elem_scale, s)
+    plain = lambda: rotate.shear_plain(img, coef, row_div, elem_scale, s)
+    with recording("checked"):
+        got = run()
+    out = compare("shear", got, plain())
+    b, by = bound(tap_bytes(coef, s, 0, rows, row_div, elem_scale) + 4 * rows * width,
+                  4 * rows * width)
+    out.update(shape=f"(1,{rows},{width}) row_div {row_div} elem_scale {elem_scale}",
+               ms=time_ms(run, cold=True), plain_ms=time_ms(plain, cold=True),
+               bound_ms=b, bound_by=by, library_ms=None)
+    return out
+
+
+def check_shear_reduce_interleaved(gen, s, row_lo, row_hi) -> dict:
+    """K3 on one channel-interleaved (1, S, 3S) image at elem_scale 3, rows
+    [row_lo, row_hi): rotate_bins' fused last shear on one bin."""
+    img = torch.rand((1, s, 3 * s), generator=gen, device="cuda")
+    coef = (torch.rand((1,), generator=gen, device="cuda") - 0.5) * 0.9
+    args = (1, 3, s, rotate.ALPHA_BOUND, row_lo, row_hi, 1)
+    run = lambda: rotate.shear_reduce(img, coef, *args)
+    plain = lambda: rotate.shear_reduce_plain(img, coef, *args)
+    with recording("checked"):
+        got = run()
+    out = compare("shear_reduce", got, plain())
+    rows = row_hi - row_lo
+    b, by = bound(tap_bytes(coef, s, row_lo, row_hi, 1, 3) + 4 * rows * 3 * s,
+                  4 * rows * 3 * s)
+    out.update(shape=f"(1,{s},{3 * s}) rows [{row_lo},{row_hi}) elem_scale 3",
+               ms=time_ms(run, cold=True), plain_ms=time_ms(plain, cold=True),
+               bound_ms=b, bound_by=by, library_ms=None)
     return out
 
 
@@ -432,15 +557,41 @@ def kernels_phase() -> dict:
     # traced delta of -0.3 bins, the realtime shape at 1/4 of the bins, and
     # with LARGE_DELTA (residuals past the stages' reach: the general path).
     jitter = -0.3 * 2 * np.pi / d
+    # The simulation phase at 256^2: the exact collimated field's one bin,
+    # S=1024 for a directional light and S=384 for a laser, K2 and K3 on
+    # rotate_bins' channel-interleaved rows, from a flushed L2; the paired
+    # engine's scan of a two-tracer source at S=384; the realtime
+    # configuration's group of 16 at S=384, K2 and K3 from a flushed L2.
+    # At S=640 also a full scan of a two-tracer source's second tracer
+    # (src_offset D) and the fused_resolve phase's resolve of 1/4 of the
+    # bins (3*32 images).
+    # main() raises if a path launches K1-K3 at a shape not held here.
     results = {
         "attenuation_scan_rows": (check_scan(gen, d, 384, 1, 0, 1),
                                   check_scan(gen, d, 640, 1, 0, 1),
-                                  check_scan(gen, d, 640, 16, 3, 2)),
+                                  check_scan(gen, d, 640, 16, 3, 2),
+                                  check_scan(gen, d, 640, 16, 3, 1),
+                                  check_scan(gen, d, 640, 1, 0, 2),
+                                  check_scan(gen, d, 640, 4, 3, 1),
+                                  check_scan(gen, 1, 1024, 1, 0, 1),
+                                  check_scan(gen, 1, 384, 1, 0, 1),
+                                  check_scan(gen, d, 384, 1, 0, 2),
+                                  check_scan(gen, d, 384, 16, 3, 1)),
         "shear": (check_shear(gen, 3 * d, 384), check_shear(gen, 3 * d, 640),
-                  check_shear(gen, 3 * d // 16, 640, cold=True)),
+                  check_shear(gen, 3 * d // 16, 640, cold=True),
+                  check_shear_interleaved(gen, 1024, 1, 3),
+                  check_shear_interleaved(gen, 1024, 3, 1),
+                  check_shear_interleaved(gen, 384, 1, 3),
+                  check_shear_interleaved(gen, 384, 3, 1),
+                  check_shear(gen, 3 * d // 16, 384, cold=True),
+                  check_shear(gen, 3 * d // 4, 640)),
         "shear_reduce": (check_shear_reduce(gen, 3 * d, 384, 64, 320),
                          check_shear_reduce(gen, 3 * d, 640, 128, 512),
-                         check_shear_reduce(gen, 3 * d // 16, 640, 128, 512, cold=True)),
+                         check_shear_reduce(gen, 3 * d // 16, 640, 128, 512, cold=True),
+                         check_shear_reduce_interleaved(gen, 1024, 384, 640),
+                         check_shear_reduce_interleaved(gen, 384, 64, 320),
+                         check_shear_reduce(gen, 3 * d // 16, 384, 64, 320, cold=True),
+                         check_shear_reduce(gen, 3 * d // 4, 640, 128, 512)),
         "rotate_planar_sum_fused": (
             check_rotfused(gen, 384, 1, 0.0), check_rotfused(gen, 640, 1, 0.0),
             check_rotfused(gen, 384, 1, jitter), check_rotfused(gen, 640, 1, jitter),
@@ -1024,6 +1175,328 @@ def production_phase() -> dict:
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
 
+# The README's quickstart (README.md:133-141) at full size.
+SIM_SIZE = 256
+SIM_RAYS = 65536
+SIM_FRAMES = 32
+SIM_MEASURE = 8
+SIM_SYNC_STEPS = 9     # steps under torch's sync debug mode (measures at 1 and 8)
+SIM_SHORT_STEPS = 8    # steps of the collimated run
+SIM_REALTIME_STEPS = 16
+SIM_AI_STEPS = 4
+SIM_ORACLE_FRAMES = 2
+# collimated_direct_raw against the same composition through the plain
+# versions, relative to its maximum: float32 roundings of one scan and three
+# shears.
+COLLIMATED_TOL = 1e-5
+# The README scene's options (README.md:138) and the AIAccelerator's mono
+# defaults (litbox_tpu/engine/pipeline.py:110-111).
+README_SIM = dict(width=SIM_SIZE, height=SIM_SIZE, mode=Mode.REFERENCE,
+                  convergence_threshold=1e-4, rays_per_frame=SIM_RAYS,
+                  frame_limit=SIM_FRAMES, measurement_interval=SIM_MEASURE)
+AI_NET = dict(unet_size=5, initial_features=32)
+
+
+def readme_scene(point: bool = True, collimated: bool = False, device: str = "cuda"):
+    """The README's scene (a point light and an ellipse), with a laser and a
+    directional light added when `collimated`; without `point`, only those
+    (vacuum)."""
+    b = SceneBuilder()
+    if point:
+        b.add_point_light((128, 140), radius=4, color=(1, .85, .6), intensity=2, bounces=3)
+        b.add_ellipse((160, 115), (40, 25), rotation=0.5, color=(.5, .6, 1, 1),
+                      log_density=-1.1)
+    if collimated:
+        b.add_laser_light((30, 60), (6, 1), rotation=2.2, color=(1.0, 0.3, 0.2),
+                          intensity=1.5, bounces=2)
+        b.add_directional_light(rotation=0.4, color=(0.7, 0.8, 1.0), intensity=0.5,
+                                bounces=2)
+    return b.build(device=device)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Swap K1-K3's wrappers for their plain versions where the port's
+    modules call them, so a composition runs in plain PyTorch on the card
+    (and counts no launch)."""
+    swaps = [(rbt, "attenuation_scan_rows", attnscan.attenuation_scan_rows_plain),
+             (rotate, "shear", rotate.shear_plain),
+             (rotate, "shear_reduce", rotate.shear_reduce_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def flax_tree(arch: dict, seed: int) -> dict:
+    """A Flax-layout variable tree ({"params", "batch_stats"}) of the JAX
+    package's UNet of `arch`, each leaf drawn with numpy from `seed` (conv
+    kernels N(0, 1/fan_in), BatchNorm scale and var in [0.5, 1.5), biases
+    and means in [-0.2, 0.2)): the layout convert.unet_from_flax reads,
+    built from the port's module names without JAX."""
+    with torch.device("meta"):
+        state = LitboxDenoiserNet(**arch).state_dict()
+    rng = np.random.default_rng(seed)
+    tree = {"params": {}, "batch_stats": {}}
+    for key, ref in state.items():
+        *mods, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        path = ["Conv_0" if m == "conv" else m for m in mods]
+        shape = tuple(ref.shape)
+        if leaf == "weight" and len(shape) == 4:
+            name, shape = "kernel", (shape[2], shape[3], shape[1], shape[0])
+            value = rng.normal(0, np.prod(shape[:-1]) ** -0.5, shape)
+        elif leaf in ("weight", "running_var"):
+            name = "scale" if leaf == "weight" else "var"
+            value = rng.uniform(0.5, 1.5, shape)
+        else:
+            name = {"bias": "bias", "running_mean": "mean"}[leaf]
+            value = rng.uniform(-0.2, 0.2, shape)
+        node = tree["batch_stats" if leaf.startswith("running") else "params"]
+        for m in path:
+            node = node.setdefault(m, {})
+        node[name] = value.astype(np.float32)
+    return tree
+
+
+def _timed_steps(sim, n: int) -> tuple[float, float]:
+    """(ms of the first step, ms per step of the next n - 1), host clock,
+    each span ended by a synchronize; photons/s from the simulation's own
+    counters over the later steps."""
+    t0 = time.perf_counter()
+    sim.step()
+    torch.cuda.synchronize()
+    sim.update_performance_metrics()
+    t1 = time.perf_counter()
+    for _ in range(n - 1):
+        sim.step()
+    torch.cuda.synchronize()
+    sim.update_performance_metrics()
+    t2 = time.perf_counter()
+    return (t1 - t0) * 1e3, (t2 - t1) / max(1, n - 1) * 1e3
+
+
+def _read_ms(fn):
+    """(value, ms) of fn() on the host clock, ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value = fn()
+    torch.cuda.synchronize()
+    return value, (time.perf_counter() - t0) * 1e3
+
+
+def _hdr_ok(name: str, hdr, failures: list) -> None:
+    if hdr.shape != (SIM_SIZE, SIM_SIZE, 3) or not bool(torch.isfinite(hdr).all()):
+        failures.append(f"{name}: HDR is not finite of shape ({SIM_SIZE}, {SIM_SIZE}, 3)")
+    elif float(hdr.min()) < 0:
+        failures.append(f"{name}: HDR has negative values (min {float(hdr.min())})")
+
+
+def _sync_record(first: list, later: list) -> dict:
+    """Host syncs of a run's first step (the per-scene reads) and of the
+    steps after it, with each site."""
+    return dict(first_step=len(first), later_steps=SIM_SYNC_STEPS - 1,
+                later_count=len(later), later_per_step=len(later) / (SIM_SYNC_STEPS - 1),
+                first_sites=sorted(set(first)), later_sites=sorted(set(later)))
+
+
+def _reference_run(engine: str, scene, failures: list) -> dict:
+    """The README quickstart with `engine`: SIM_FRAMES steps, the first
+    output read, counts and memory; then SIM_SYNC_STEPS steps of a second
+    run under torch's sync debug mode."""
+    torch.cuda.reset_peak_memory_stats()
+    sim = Simulation(engine=engine, **README_SIM)
+    sim.set_scene(scene)
+    reset_counts()
+    first_ms, ms_per_step = _timed_steps(sim, SIM_FRAMES)
+    hdr, read_ms = _read_ms(lambda: sim.simulation_output_hdr)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _hdr_ok(engine, hdr, failures)
+    counts = [t.forward_photon_count for t in sim._tracers]
+    if counts != [SIM_FRAMES * SIM_RAYS] * 2:
+        failures.append(f"{engine}: photon counts {counts}, not {SIM_FRAMES} x {SIM_RAYS}")
+    a, b = sim.tracer_a.tracer_output, sim.tracer_b.tracer_output
+    energy = [float(a.double().sum()), float(b.double().sum())]
+    energy_rel = abs(energy[0] - energy[1]) / (0.5 * sum(energy))
+    differ = float((a - b).abs().max()) > 0
+    if engine == "rbt-paired" and (not differ or energy_rel > 0.05):
+        failures.append(f"{engine}: tracers differ {differ}, energies {energy}")
+    sync_sim = Simulation(engine=engine, seed=1, **README_SIM)
+    sync_sim.set_scene(scene)
+    first = host_syncs(sync_sim.step)
+    later = host_syncs(lambda: [sync_sim.step() for _ in range(SIM_SYNC_STEPS - 1)])
+    return dict(engine=engine, steps=sim.iterations_since_clear,
+                first_step_ms=first_ms, ms_per_step=ms_per_step,
+                photons_per_second=sim.photons_per_second,
+                first_output_read_ms=read_ms,
+                convergence_progress=sim.convergence_progress,
+                photon_counts=counts, tracer_energy=energy, tracer_energy_rel=energy_rel,
+                tracers_differ=differ, hdr_mean=float(hdr.mean()),
+                host_syncs=_sync_record(first, later),
+                peak_memory_bytes=peak, launches=launches)
+
+
+def _collimated_run(failures: list) -> dict:
+    """The README scene with a laser and a directional light, exact
+    collimated fields on: the per-scene precompute, collimated_direct_raw
+    against its plain composition on the card, the vacuum check, then
+    SIM_SHORT_STEPS steps and the output."""
+    scene = readme_scene(collimated=True)
+    gb = rasterize(scene, SIM_SIZE, SIM_SIZE)
+    lights = scene.lights
+    collimated_direct_raw = lambda: rbt.collimated_direct_raw(gb, lights, SIM_SIZE, SIM_SIZE)
+    collimated_direct_raw()  # first call: allocations at S=384 and S=1024
+    exact, precompute_ms = _read_ms(collimated_direct_raw)
+    with plain_kernels():
+        plain = collimated_direct_raw()
+    err = float((exact - plain).abs().max())
+    rel = err / float(plain.abs().max())
+    if not bool(torch.isfinite(exact).all()) or rel > COLLIMATED_TOL:
+        failures.append(f"collimated_direct_raw vs plain: {rel} of max > {COLLIMATED_TOL}")
+    vacuum = readme_scene(point=False, collimated=True)
+    vgb = rasterize(vacuum, SIM_SIZE, SIM_SIZE)
+    vraw = rbt.collimated_direct_raw(vgb, vacuum.lights, SIM_SIZE, SIM_SIZE)
+    vacuum_hdr = float(to_hdr(vraw, 1.0, vgb).abs().max())
+    if not float(vraw.abs().sum()) > 0 or vacuum_hdr >= 1e-4:
+        failures.append(f"vacuum: beam energy {float(vraw.abs().sum())}, HDR max {vacuum_hdr}")
+
+    sim = Simulation(**dict(README_SIM, frame_limit=SIM_SHORT_STEPS))
+    sim.set_scene(scene)
+    reset_counts()
+    first_ms, ms_per_step = _timed_steps(sim, SIM_SHORT_STEPS)
+    hdr, read_ms = _read_ms(lambda: sim.simulation_output_hdr)
+    launches = read_counts()
+    _hdr_ok("collimated", hdr, failures)
+    if sim.tracer_a.forward._exact_raw is None:
+        failures.append("collimated: no exact field was added")
+    return dict(precompute_ms=precompute_ms, vs_plain_max_abs_err=err,
+                vs_plain_rel_err=rel, tol=COLLIMATED_TOL, vacuum_hdr_max=vacuum_hdr,
+                steps=sim.iterations_since_clear, first_step_ms=first_ms,
+                ms_per_step=ms_per_step, first_output_read_ms=read_ms,
+                exact_energy=float(exact.double().sum()), hdr_mean=float(hdr.mean()),
+                launches=launches)
+
+
+def _realtime_run(scene, failures: list) -> dict:
+    """Mode.REALTIME with the jitter ladder and 16 display groups: a
+    display_hdr read after each of SIM_REALTIME_STEPS steps."""
+    sim = Simulation(width=SIM_SIZE, height=SIM_SIZE, mode=Mode.REALTIME,
+                     rays_per_frame=SIM_RAYS)
+    sim.set_scene(scene)
+    sim._validate_tracers()
+    for t in sim._tracers:
+        t.forward.jitter_bins = True
+        t.forward.resolve_groups = 16
+    first = host_syncs(lambda: (sim.step(), sim.display_hdr))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(SIM_REALTIME_STEPS):
+        sim.step()
+        hdr = sim.display_hdr
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / SIM_REALTIME_STEPS * 1e3
+    launches = read_counts()
+    later = host_syncs(lambda: [(sim.step(), sim.display_hdr)
+                                for _ in range(SIM_SYNC_STEPS - 1)])
+    _hdr_ok("realtime", hdr, failures)
+    return dict(steps=SIM_REALTIME_STEPS, ms_per_step_with_display=ms,
+                hdr_mean=float(hdr.mean()), host_syncs=_sync_record(first, later),
+                launches=launches)
+
+
+def _ai_run(scene, failures: list) -> dict:
+    """AIAccelerator(blend="auto") with the mono defaults and float32
+    weights from UNET_SEED carried by convert.unet_from_flax, over
+    SIM_AI_STEPS reference steps; each on_step timed on the host clock."""
+    sim = Simulation(**dict(README_SIM, frame_limit=SIM_AI_STEPS))
+    sim.set_scene(scene)
+    weights = convert.unet_from_flax(flax_tree(AI_NET, UNET_SEED), **AI_NET)
+    acc = pipeline.AIAccelerator(sim, weights, blend="auto", **AI_NET)
+    times = []
+
+    def timed(iteration):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc._on_step(iteration)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+
+    sim.on_step[sim.on_step.index(acc._on_step)] = timed
+    reset_counts()
+    while sim.is_running:
+        sim.step()
+    launches = read_counts()
+    # The net's weights are random, so its output may be negative: the
+    # simulation's HDR is held non-negative, the denoised one finite.
+    _hdr_ok("ai", sim.simulation_output_hdr, failures)
+    if not bool(torch.isfinite(acc.hdr_output).all()):
+        failures.append("ai: the denoised HDR is not finite")
+    k = float(acc.last_blend)
+    tm = acc.tonemapped_output
+    if not 0 <= k <= 1 or not (0 <= float(tm.min()) and float(tm.max()) <= 1):
+        failures.append(f"ai: k {k}, tone map in [{float(tm.min())}, {float(tm.max())}]")
+    return dict(net=dict(AI_NET, seed=UNET_SEED, dtype="float32", blend="auto"),
+                steps=len(times), ms_per_on_step=times, k=k,
+                cudnn_allow_tf32=torch.backends.cudnn.allow_tf32, launches=launches)
+
+
+def _oracle_run(scene, failures: list) -> dict:
+    """engine="oracle" (the plain PyTorch march) at 256^2 for
+    SIM_ORACLE_FRAMES frames."""
+    sim = Simulation(**dict(README_SIM, engine="oracle", frame_limit=SIM_ORACLE_FRAMES,
+                            measurement_interval=0))
+    sim.set_scene(scene)
+    first_ms, ms_per_step = _timed_steps(sim, SIM_ORACLE_FRAMES)
+    hdr, read_ms = _read_ms(lambda: sim.simulation_output_hdr)
+    _hdr_ok("oracle", hdr, failures)
+    counts = [t.forward_photon_count for t in sim._tracers]
+    writes = [t.forward_write_count for t in sim._tracers]
+    if counts != [SIM_ORACLE_FRAMES * SIM_RAYS] * 2 or min(writes) <= 0:
+        failures.append(f"oracle: photon counts {counts}, writes {writes}")
+    return dict(frames=SIM_ORACLE_FRAMES, first_frame_ms=first_ms,
+                ms_per_frame=(first_ms + ms_per_step * (SIM_ORACLE_FRAMES - 1))
+                / SIM_ORACLE_FRAMES, photon_counts=counts, write_counts=writes,
+                hdr_mean=float(hdr.mean()))
+
+
+def simulation_phase() -> dict:
+    """engine.Simulation, the README's entry point, at 256^2 in six
+    configurations (reference, paired, collimated, realtime, ai, oracle),
+    with the launches of each; K1-K3 must be launched by reference and by
+    collimated. Last, a Simulation on the card must refuse a CPU scene."""
+    failures = []
+    scene = readme_scene()
+    runs = {"reference": _reference_run("rbt", scene, failures),
+            "paired": _reference_run("rbt-paired", scene, failures),
+            "collimated": _collimated_run(failures),
+            "realtime": _realtime_run(scene, failures),
+            "ai": _ai_run(scene, failures),
+            "oracle": _oracle_run(scene, failures)}
+    for name in ("reference", "collimated"):
+        if missing := unlaunched(runs[name]["launches"], RESOLVE_KERNELS):
+            failures.append(f"{name}: kernels of the path were not launched: {missing}")
+    refused = Simulation()
+    try:
+        refused.set_scene(readme_scene(device="cpu"))
+        failures.append("a Simulation on the card took a CPU scene")
+    except ValueError:
+        pass
+    if refused._scene is not None or refused._tracers is not None:
+        failures.append("the refused Simulation kept the CPU scene")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    launches = {name: sum(r["launches"][name] for r in runs.values() if "launches" in r)
+                for name in COUNTERS}
+    return dict(size=SIM_SIZE, rays_per_frame=SIM_RAYS, launches=launches, **runs)
+
+
 def rotfused_split_phase() -> tuple[dict, dict]:
     """runs/prof_rotfused.py on the card: V1-V4 and K4 on the same images,
     at the script's (384, 640, 640) and at the frame's group shape
@@ -1295,9 +1768,11 @@ def main() -> None:
             print("  nvcc:", line.strip())
     phase("build", t0, nvcc=("cached" if seconds is None else f"{seconds:.3f}s"))
 
+    install_recorders()
     t0 = time.perf_counter()
     measured = kernels_phase()
     phase("kernels", t0)
+    _recording[0] = "path"
 
     t0 = time.perf_counter()
     frame = frame_phase()
@@ -1321,6 +1796,21 @@ def main() -> None:
     phase("production", t0)
     print(json.dumps({"production": prod}))
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    sim = simulation_phase()
+    phase("simulation", t0)
+    print(json.dumps({"simulation": sim}))
+    torch.cuda.empty_cache()
+    _recording[0] = None
+    print(json.dumps({"kernel_signatures": dict(
+        checked=len(SIGNATURES["checked"]), path=len(SIGNATURES["path"]),
+        unchecked=unchecked_signatures())}))
+    if not SIGNATURES["path"]:
+        raise AssertionError("no K1-K3 launch was recorded on the paths")
+    if unchecked := unchecked_signatures():
+        raise AssertionError("K1-K3 were launched on a path at shapes the kernels "
+                             f"phase does not hold against their plain versions: {unchecked}")
 
     t0 = time.perf_counter()
     split_launches, split = rotfused_split_phase()
@@ -1349,7 +1839,8 @@ def main() -> None:
     # microops phase for B5's five; every path's counts beside it.
     paths = {"bench_frame": frame["launches"], "pipeline": pipe["launches"],
              "fused_resolve": fused["launches"], "production": prod["launches"],
-             "rotfused_split": split_launches, "microops": micro_launches}
+             "simulation": sim["launches"], "rotfused_split": split_launches,
+             "microops": micro_launches}
     drives = {"rotate_planar_sum_fused": "fused_resolve",
               **{name: "rotfused_split" for name in SPLIT},
               **{name: "microops" for name in MICROOPS}}

@@ -4,9 +4,24 @@ The JAX package `litbox_tpu` stays as the reference; this package imports
 neither it nor JAX. It keeps the JAX package's layout:
   core/   types, LUT builders (a copy), texture sampling
   scene/  scene builder and GBuffer rasterizer
-  sim/    the rotated-bin transport (RBT) frame: fields, trace, resolve, HDR
-  ops/    the hand-written CUDA kernels (csrc/*.cu) with their plain versions
+  sim/    the rotated-bin transport (RBT): fields, trace, exact collimated
+          fields, resolve, HDR; the oracle march; the tracers
+  ops/    the hand-written CUDA kernels (csrc/*.cu) with their plain
+          versions; the deposit splats
+  post/   tone maps, tracer-pair post-processing
+  nn/     the denoiser UNet and its blend
+  engine/ Simulation (the user's entry point), AIAccelerator, the fused
+          pipeline and the shipped realtime frame
   convert.py  carries state across from the JAX package as numpy dicts
+
+    from litbox_tpu_torch.engine import Simulation, Mode
+    from litbox_tpu_torch.scene import SceneBuilder
+
+    b = SceneBuilder()
+    b.add_point_light((128, 140), radius=4, color=(1, .85, .6), intensity=2, bounces=3)
+    sim = Simulation(width=256, height=256, mode=Mode.REFERENCE)
+    sim.set_scene(b.build())   # on "cuda"; device="cpu" for both on the CPU
+    hdr = sim.run()
 
 Entry points build tensors on `cuda` unless the caller passes `device="cpu"`;
 functions that take tensors run where their inputs lie. On a CPU tensor a

@@ -1,4 +1,5 @@
-"""Texture sampling (counterpart of the JAX package's core/sampling.py).
+"""Texture sampling (counterpart of the JAX package's core/sampling.py;
+its LUT samplers and `gather_2d` are not ported).
 
 Conventions: fields are (H, W[, C]) tensors indexed [y, x]; continuous
 positions are in texel units with texel centers at (i + 0.5); `uv` variants
@@ -39,3 +40,25 @@ def sample_bilinear_uv(field: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     xy = torch.stack([uv[..., 0] * float(field.shape[1]),
                       uv[..., 1] * float(field.shape[0])], -1)
     return sample_bilinear(field, xy)
+
+
+def sample_nearest(field: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Point-clamp sample at texel coords (..., 2) = (x, y)."""
+    h, w = field.shape[0], field.shape[1]
+    ix = torch.floor(xy[..., 0]).long().clamp(0, w - 1)
+    iy = torch.floor(xy[..., 1]).long().clamp(0, h - 1)
+    return field[iy, ix]
+
+
+def sample_nearest_uv(field: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    xy = torch.stack([uv[..., 0] * float(field.shape[1]),
+                      uv[..., 1] * float(field.shape[0])], -1)
+    return sample_nearest(field, xy)
+
+
+def downsample2x_mean(img: torch.Tensor) -> torch.Tensor:
+    """2x2 box downsample of (H, W[, C]); standard mip step."""
+    h, w = img.shape[0] // 2, img.shape[1] // 2
+    x = img[: h * 2, : w * 2]
+    x = x.reshape((h, 2, w, 2) + tuple(x.shape[2:]))
+    return x.mean(dim=(1, 3))

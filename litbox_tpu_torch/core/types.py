@@ -30,6 +30,16 @@ LUMINANCE_WEIGHTS = (0.2126, 0.7152, 0.0722)
 
 
 @dataclasses.dataclass(frozen=True)
+class SimulationProfile:
+    """Run profile (reference: Simulation.cs:12-18)."""
+
+    frame_limit: int = -1
+    rays_per_frame: int = 65536
+    integration_interval: float = 0.1
+    photon_bounces: int = -1  # -1: use each light's own bounce count
+
+
+@dataclasses.dataclass(frozen=True)
 class Realtime1080pProfile:
     """The production 1080p configuration, pinned in one place (a copy of
     the JAX package's profile).

@@ -1,0 +1,3 @@
+from .simulation import Mode, Simulation, Strategy
+
+__all__ = ["Mode", "Simulation", "Strategy"]

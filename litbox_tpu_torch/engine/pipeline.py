@@ -2,8 +2,9 @@
 (counterpart of the JAX package's engine/pipeline.py, BASELINE config 5).
 
 The JAX package jits the frame into one XLA program; here each stage runs
-eagerly on the device its inputs lie on. `AIAccelerator` is not ported yet;
-`denoise_pair_auto` is the body of its dual-tracer display step.
+eagerly on the device its inputs lie on. `AIAccelerator` hosts the
+denoiser on a `Simulation`; `denoise_pair_auto` is the body of its
+dual-tracer display step.
 
 The UNet runs at the precision of its weights: with bf16 weights (the
 realtime profile's `bf16_display`) its input is cast to bf16 and its output
@@ -117,6 +118,77 @@ def denoise_pair_auto(model: LitboxDenoiserNet, model_variables,
     out_a, out_b = denoise_pair_hdr(model, model_variables, a, b, transform)
     return blend_pair_symmetric(out_a, out_b, a, b, k_floor=PRODUCTION_K_FLOOR,
                                 floor_gate=PRODUCTION_FLOOR_GATE)
+
+
+class AIAccelerator:
+    """In-engine denoiser: runs the UNet on the simulation's output after
+    every step and exposes HDR + tone-mapped outputs (the enabled version of
+    the reference's AIAccelerator, AIAccelerator.cs:57-84).
+
+    model_variables is the net's state_dict (as `convert.unet_from_flax`
+    gives it), moved once to the simulation's device; the module itself is
+    built on the meta device. blend="auto" denoises both tracers' outputs
+    in one batched pass and shows their k-blended mean (denoise_pair_auto,
+    k from the pair with the shipped floor and gate; `last_blend` holds k);
+    a float blend runs the net on the pair mean with that residual blend.
+    The blend prior and loading a training checkpoint need the JAX
+    package's nn/train.py and blend_prior_lookup, which are not ported.
+    """
+
+    def __init__(self, simulation, model_variables: Mapping[str, torch.Tensor],
+                 unet_size: int = 5, initial_features: int = 32,
+                 transform: TransformConfig | None = None,
+                 tonemap: str = "ue5", blend: float | str = 1.0,
+                 blend_prior=None, out_channels: int = 1,
+                 padding_mode: str = "reflect", global_residual: bool = False):
+        if blend_prior is not None:
+            raise NotImplementedError(
+                "blend_prior (nn.infer.blend_prior_lookup) is not ported")
+        self.simulation = simulation
+        self.transform = transform or TransformConfig()
+        self.tonemap = tonemap
+        self.blend = blend
+        self.blend_prior = None
+        with torch.device("meta"):
+            self.model = LitboxDenoiserNet(unet_size=unet_size,
+                                           initial_features=initial_features,
+                                           out_channels=out_channels,
+                                           padding_mode=padding_mode,
+                                           global_residual=global_residual)
+        self.model_variables = {k: v.to(simulation.device)
+                                for k, v in model_variables.items()}
+        self.hdr_output: torch.Tensor | None = None
+        self.tonemapped_output: torch.Tensor | None = None
+        self.last_blend: torch.Tensor | None = None  # k of the last step (auto)
+        simulation.on_step.append(self._on_step)
+
+    def _on_step(self, _iteration=None):
+        if self.blend == "auto":
+            self.hdr_output, self.last_blend = denoise_pair_auto(
+                self.model, self.model_variables,
+                self.simulation.tracer_a.tracer_output,
+                self.simulation.tracer_b.tracer_output, self.transform)
+        else:
+            self.hdr_output = denoise_hdr(
+                self.model, self.model_variables,
+                self.simulation.simulation_output_hdr, self.transform,
+                blend=float(self.blend))
+        if self.tonemap == "uchimura":
+            self.tonemapped_output = tonemap_uchimura(self.hdr_output, UchimuraShape())
+        else:
+            self.tonemapped_output = tonemap_ue5(self.hdr_output, UE5Shape())
+
+    @classmethod
+    def from_checkpoint(cls, simulation, ckpt_path: str, **kwargs):
+        """Build from a training checkpoint: needs the JAX package's
+        nn/train.py (Trainer, load_train_config), which is not ported."""
+        raise NotImplementedError(
+            "AIAccelerator.from_checkpoint needs nn/train.py, which is not ported; "
+            "carry the weights with convert.unet_from_flax instead")
+
+    def detach(self):
+        if self._on_step in self.simulation.on_step:
+            self.simulation.on_step.remove(self._on_step)
 
 
 def make_frame_fn(cfg: PipelineConfig, gbuffer, lights, field_textures, brdf_lut,

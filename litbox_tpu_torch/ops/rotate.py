@@ -39,6 +39,12 @@ in device memory and no atomics. An image whose window does not fit a stage
 in the same kernel, chosen on the device, so `delta` may be any tensor and
 is never read on the host.
 
+`rotate_bins` and `rotate_bins_uniform` are the JAX version's
+channel-interleaved rotation of (D, S, S, C) images (the rotate-back of
+`sim/rbt.py::rotate_back`, which the exact collimated field runs on one
+bin): K2 at elem_scale C on (D, S, S*C) rows and at row_div C on
+(D, S*C, S) rows, then K3 (or K2) at elem_scale C.
+
 A CPU tensor takes the plain PyTorch version; a CUDA tensor takes the kernel
 or the call raises.
 """
@@ -185,20 +191,26 @@ def _quadrant_groups(angles) -> list:
     return groups
 
 
+def _to_device(values: np.ndarray, dev) -> torch.Tensor:
+    """A host array on `dev` as float32. It goes to the card from pinned
+    memory without blocking: a copy from pageable memory would wait for the
+    stream."""
+    host = torch.from_numpy(np.ascontiguousarray(values, np.float32))
+    if torch.device(dev).type == "cuda":
+        host = host.pin_memory()
+    return host.to(dev, non_blocking=True)
+
+
 def _residuals(base_angles: tuple, delta, dev) -> torch.Tensor:
     """Per-bin shear residual angles base_res[d] + delta on `dev` (float32).
     A float delta is added on the host, so no scalar is copied to the device
-    on its own. The angles go to the card from pinned memory without
-    blocking: a copy from pageable memory would wait for the stream."""
+    on its own."""
     base_res = np.asarray(
         [a - round(a / (np.pi / 2)) * (np.pi / 2) for a in base_angles],
         np.float32)
     if not isinstance(delta, torch.Tensor):
         base_res += np.float32(delta)
-    host = torch.from_numpy(base_res)
-    if torch.device(dev).type == "cuda":
-        host = host.pin_memory()
-    res = host.to(dev, non_blocking=True)
+    res = _to_device(base_res, dev)
     return res + delta.to(dev, torch.float32) if isinstance(delta, torch.Tensor) else res
 
 
@@ -242,6 +254,77 @@ def rotate_planar_sum(channels: tuple, base_angles: tuple, delta,
     return shear_reduce(flat, alpha, row_div=1, elem_scale=1, n_texels=s,
                         coef_bound=ALPHA_BOUND, row_lo=row_lo, row_hi=row_hi,
                         groups=c)
+
+
+def _shear_pipeline(pre: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                    d: int, s: int, c: int, reduce_rows: tuple | None) -> torch.Tensor:
+    """Three-shear pipeline over pre-quadrant-rotated (D, S, S, C) images,
+    channel-interleaved as in the JAX version: the x shears read (D, S, S*C)
+    rows at elem_scale C, the y shear (D, S*C, S) rows at row_div C.
+
+    reduce_rows=(row_lo, row_hi) fuses the final x shear with the sum over
+    the bin axis (K3) and keeps output rows [row_lo, row_hi): returns
+    (row_hi - row_lo, S, C); otherwise (D, S, S, C)."""
+    flat = shear(pre.reshape(d, s, s * c), alpha, row_div=1, elem_scale=c,
+                 n_texels=s, coef_bound=ALPHA_BOUND)
+    # Vertical shear: transpose so y is the lane axis.
+    t = flat.reshape(d, s, s, c).permute(0, 2, 3, 1).reshape(d, s * c, s).contiguous()
+    t = shear(t, beta, row_div=c, elem_scale=1, n_texels=s, coef_bound=BETA_BOUND)
+    flat = t.reshape(d, s, c, s).permute(0, 3, 1, 2).reshape(d, s, s * c).contiguous()
+    if reduce_rows is not None:
+        lo, hi = reduce_rows
+        out = shear_reduce(flat, alpha, row_div=1, elem_scale=c, n_texels=s,
+                           coef_bound=ALPHA_BOUND, row_lo=lo, row_hi=hi)
+        return out.reshape(hi - lo, s, c)
+    flat = shear(flat, alpha, row_div=1, elem_scale=c, n_texels=s,
+                 coef_bound=ALPHA_BOUND)
+    return flat.reshape(d, s, s, c)
+
+
+def _check_bins(images: torch.Tensor, n_angles: int) -> tuple[int, int, int]:
+    d, s, s2, c = images.shape
+    if s != s2 or n_angles != d:
+        raise ValueError(f"images {tuple(images.shape)} vs {n_angles} angles")
+    return d, s, c
+
+
+def rotate_bins(images: torch.Tensor, angles: torch.Tensor,
+                reduce_rows: tuple | None = None) -> torch.Tensor:
+    """Rotate each (S, S, C) image of (D, S, S, C) by its own angle:
+    out[d][p] = images[d][R(angles[d]) (p - c) + c], zero outside.
+
+    `angles` is a (D,) tensor and is never read on the host: the quadrant
+    pre-rotation stacks the four rot90s and selects each image's on the
+    device, as the JAX version does. With reduce_rows=(lo, hi) returns
+    sum_d out[d][lo:hi] as (hi - lo, S, C)."""
+    d, s, c = _check_bins(images, angles.shape[0])
+    angles = angles.to(images.device, torch.float32)
+    # Quadrant pre-rotation: sampling with R(t) = R(tr) R90^k means first
+    # re-laying the image by R90^k (a rot90 of the array), then the residual.
+    # torch.round rounds half to even, as jnp.round does.
+    quarters = torch.round(angles / (np.pi / 2))
+    k = quarters.long() % 4
+    residual = angles - quarters * (np.pi / 2)
+    sel = torch.stack([images] + [torch.rot90(images, i, dims=(1, 2))
+                                  for i in (1, 2, 3)])       # (4, D, S, S, C)
+    pre = sel[k, torch.arange(d, device=images.device)]
+    return _shear_pipeline(pre, -torch.tan(residual / 2.0), torch.sin(residual),
+                           d, s, c, reduce_rows)
+
+
+def rotate_bins_uniform(images: torch.Tensor, angles: tuple,
+                        reduce_rows: tuple | None = None) -> torch.Tensor:
+    """rotate_bins with static per-image angles: the quadrant pre-rotation
+    becomes contiguous rot90 slices resolved on the host, and the shear
+    coefficients are computed in float64 on the host, as in the JAX
+    version."""
+    d, s, c = _check_bins(images, len(angles))
+    residual = [a - round(a / (np.pi / 2)) * (np.pi / 2) for a in angles]
+    pre = torch.cat([torch.rot90(images[a:b], k, dims=(1, 2)) if k else images[a:b]
+                     for a, b, k in _quadrant_groups(angles)], dim=0).contiguous()
+    alpha = _to_device(np.asarray([-np.tan(t / 2.0) for t in residual]), images.device)
+    beta = _to_device(np.asarray([np.sin(t) for t in residual]), images.device)
+    return _shear_pipeline(pre, alpha, beta, d, s, c, reduce_rows)
 
 
 def _check_fused(channels: tuple, base_angles: tuple) -> tuple[int, int]:

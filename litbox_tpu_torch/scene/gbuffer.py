@@ -44,7 +44,8 @@ def _shape_normal(kind: torch.Tensor, local: torch.Tensor,
     rhat_world = rhat_world / torch.sqrt((rhat_world**2).sum(-1, keepdim=True) + eps)
     ell_n = torch.cat([r * rhat_world, -(1.0 - r)], -1)
 
-    sprite_n = torch.tensor([0.0, 0.0, -1.0], device=local.device).expand_as(rect_n)
+    sprite_n = torch.zeros_like(rect_n)  # (0, 0, -1), made on the device
+    sprite_n[..., 2] = -1.0
     return torch.where(kind == SHAPE_RECT, rect_n,
                        torch.where(kind == SHAPE_ELLIPSE, ell_n, sprite_n))
 
@@ -74,7 +75,9 @@ def rasterize(scene: Scene, height: int, width: int) -> GBuffer:
         cover = torch.where(kind == SHAPE_ELLIPSE, disk_cover, box_cover)
         cover = cover & shapes.active[i]
 
-        tex = scene.textures[shapes.tex_index[i].long()]
+        # index_select keeps the index on the device (a 0-d index would be
+        # read back to the host).
+        tex = scene.textures.index_select(0, shapes.tex_index[i:i + 1].long())[0]
         c = sample_bilinear_uv(tex, (local + 1.0) * 0.5)
         tint = shapes.color[i]
 

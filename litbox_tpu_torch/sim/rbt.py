@@ -13,11 +13,14 @@ The trace runs every light kind with the JAX package's default options
 (analytic direct light for point lights, Monte-Carlo direct light for the
 rest, bounce chains emitted by `emit`, BRDF materials) and bench.py's
 stamp-histogram options, with one tracer or several (`n_tracers`, the
-dual-tracer pair of the shipped realtime frame). One option still raises
-NotImplementedError naming itself: `exact_collimated`. Random numbers come from
-an explicit `torch.Generator` on the fields' device, so the draws differ
-from the JAX package's threefry stream and the two agree in distribution,
-not bit for bit.
+dual-tracer pair of the shipped realtime frame). Collimated lights (lasers,
+directional lights) may take the exact wave-0 field of
+`collimated_direct_raw` instead of Monte-Carlo direct photons
+(`exact_collimated`): a one-bin rotated field at the light's own angle,
+scanned by K1 and rotated back by K2 and K3. Random numbers come from an
+explicit `torch.Generator` on the fields' device, so the draws differ from
+the JAX package's threefry stream and the two agree in distribution, not
+bit for bit.
 """
 
 from __future__ import annotations
@@ -28,10 +31,11 @@ import math
 import numpy as np
 import torch
 
-from ..core.types import LIGHT_POINT, GBuffer, affine_linear
+from ..core.types import (LIGHT_DIRECTIONAL, LIGHT_LASER, LIGHT_POINT, GBuffer,
+                          affine_linear)
 from ..ops.attnscan import attenuation_scan_rows
 from ..ops.resample import gather_bilinear
-from ..ops.rotate import rotate_planar_sum
+from ..ops.rotate import rotate_bins, rotate_bins_uniform, rotate_planar_sum
 from .emission import (assign_photons_to_lights, effective_bounces, emit,
                        emit_point_stratified, take_per_light)
 from .materials import TWO_PI, scatter_materially, unit_from_angle
@@ -78,11 +82,16 @@ def precompute_rotated_fields(gbuffer: GBuffer, n_bins: int = 128,
     s = rot_size or int(-(-int(np.ceil((height**2 + width**2) ** 0.5)) // 128) * 128)
     d = n_bins
 
-    phase = torch.as_tensor(phase, dtype=torch.float32, device=dev)
+    # Scalars are filled on the device: a tensor built from host numbers
+    # would be a copy that waits for the stream.
+    if not isinstance(phase, torch.Tensor):
+        phase = torch.full((), float(phase), device=dev)
+    phase = phase.to(dev, torch.float32)
     angles = (torch.arange(d, dtype=torch.float32, device=dev) + phase) * (2 * math.pi / d)
     cos = torch.cos(angles)
     sin = torch.sin(angles)
-    center = torch.tensor([width / 2.0, height / 2.0], dtype=torch.float32, device=dev)
+    center = torch.stack([torch.full((), width / 2.0, device=dev),
+                          torch.full((), height / 2.0, device=dev)])
 
     logt = torch.log(torch.clamp(gbuffer.transmissibility, float(np.exp(LOGT_CLAMP)), 1.0))
 
@@ -122,6 +131,118 @@ def zero_sources(fields: RotatedFields, n_tracers: int = 1) -> tuple:
     d, s = fields.n_bins, fields.size
     return tuple(torch.zeros((n_tracers * d, s, s), device=fields.trans.device)
                  for _ in range(3))
+
+
+def collimated_light_mask(lights, override_bounces=None) -> torch.Tensor:
+    """(L,) True for lights whose wave-0 deposits are computed exactly along
+    their true direction: lasers and directional lights, which emit parallel
+    rays (ForwardMonteCarlo.compute:243-251, 282-294), so their expected
+    direct field is one attenuation recurrence with no D-bin quantization."""
+    return (((lights.kind == LIGHT_LASER) | (lights.kind == LIGHT_DIRECTIONAL))
+            & lights.active
+            & (effective_bounces(lights.bounces, override_bounces) != 0))
+
+
+def _laser_direct_raw(gbuffer: GBuffer, affine: torch.Tensor, energy: torch.Tensor,
+                      height: int, width: int, rot_size: int = 0) -> torch.Tensor:
+    """Exact wave-0 deposit field (H, W, 3) of ONE collimated light.
+
+    Its rays are parallel, so its expected direct field obeys a 1D
+    attenuation recurrence along the exact beam direction: a one-bin rotated
+    field at the light's own angle (fields.phase carries it), the emitting
+    rect's coverage rasterized analytically on the rotated grid, the scan
+    (K1) and the rotate-back (K2, K3). Total injected energy is
+    energy * W * H, the emit() convention at interval=1.
+
+    The emitting rect is the affine's local x in [-1/2, 1/2], y in [0, 1]
+    (laser_origin, emission.py) with flight direction -affine[:, 1]; a
+    directional light passes the affine of its entry segment
+    (_directional_affine) and a rot_size that holds it. Texels outside the
+    frame are vacuum: gather_bilinear fades to 0 there, so their
+    log-transmissibility is 0. `affine` and `energy` are tensors on the
+    GBuffer's device and are not read on the host.
+    """
+    d = -affine[:, 1]
+    d = d / torch.clamp(torch.linalg.norm(d), min=1e-12)
+    theta = torch.atan2(d[1], d[0])
+    fields = precompute_rotated_fields(gbuffer, n_bins=1, rot_size=rot_size,
+                                       phase=theta / (2.0 * math.pi))
+    s = fields.size
+    dev = fields.trans.device
+
+    # Rotated-grid points in target-frame coordinates (as in precompute).
+    xs = torch.arange(s, dtype=torch.float32, device=dev) + 0.5 - s / 2.0
+    cb, sb = fields.cos[0], fields.sin[0]
+    px = cb * xs[None, :] - sb * xs[:, None] + fields.center[0]
+    py = sb * xs[None, :] + cb * xs[:, None] + fields.center[1]
+
+    # Analytic antialiased coverage of the emitting rect in its local frame.
+    lin = affine[:, :2]
+    det = lin[0, 0] * lin[1, 1] - lin[0, 1] * lin[1, 0]
+    det = torch.where(torch.abs(det) < 1e-12, 1e-12, det)
+    inv = torch.stack([torch.stack([lin[1, 1], -lin[0, 1]]),
+                       torch.stack([-lin[1, 0], lin[0, 0]])]) / det
+    rx = px - affine[0, 2]
+    ry = py - affine[1, 2]
+    lx = inv[0, 0] * rx + inv[0, 1] * ry
+    ly = inv[1, 0] * rx + inv[1, 1] * ry
+    g0 = torch.clamp(torch.linalg.norm(inv[0]), min=1e-12)   # |grad lx| per texel
+    g1 = torch.clamp(torch.linalg.norm(inv[1]), min=1e-12)
+    cov = (torch.clamp((0.5 - torch.abs(lx)) / g0 + 0.5, 0.0, 1.0)
+           * torch.clamp((0.5 - torch.abs(ly - 0.5)) / g1 + 0.5, 0.0, 1.0))
+
+    total = energy * float(width * height)
+    src = cov[None] / torch.clamp(cov.sum(), min=1e-12)
+    deposited = attenuation_scan(fields, tuple(src * total[c] for c in range(3)))
+    # traced_phase: the field's angle lives in fields.phase.
+    return rotate_back(fields, deposited, height, width, traced_phase=True)
+
+
+def _directional_affine(affine: np.ndarray, height: int,
+                        width: int) -> tuple[np.ndarray, int]:
+    """The emitting-rect affine (and the rotated-field size that holds it)
+    of a directional light's entry segment.
+
+    EmitDirectionalLight (ForwardMonteCarlo.compute:282-294, emission.py)
+    emits origins on the pixel-space segment
+        p(t) = (0.5 - dl + t * dperp) * size,  t in [-0.7075, 0.7075]
+    flying along dl. In _laser_direct_raw's local frame that segment is the
+    columns [1.415 * dperp * size, -dl, p(0)]: a 1-texel-deep rect whose
+    normalized coverage is the emission density. rot_size is a multiple of
+    256 that holds the frame and the segment."""
+    size = np.array([width, height], np.float64)
+    dl = -affine[:, 1]
+    dl = dl / max(np.linalg.norm(dl), 1e-12)
+    dperp = np.array([dl[1], -dl[0]])
+    col0 = 1.415 * dperp * size
+    center = (0.5 - dl) * size
+    synth = np.stack([col0, -dl, center], axis=1).astype(np.float32)
+    half_span = max(
+        float(np.linalg.norm(center - 0.5 * size) + 0.5 * np.linalg.norm(col0)),
+        0.5 * float(np.hypot(height, width))) + 2.0
+    rot_size = int(-(-int(np.ceil(2.0 * half_span)) // 256) * 256)
+    return synth, rot_size
+
+
+def collimated_direct_raw(gbuffer: GBuffer, lights, height: int,
+                          width: int, override_bounces=None) -> torch.Tensor | None:
+    """Sum of the exact wave-0 fields of all collimated lights: a per-scene
+    precompute, None when the scene has none. It reads the light mask and
+    kinds on the host (and a directional light's affine), once per call."""
+    mask = collimated_light_mask(lights, override_bounces).cpu().numpy()
+    if not mask.any():
+        return None
+    kinds = lights.kind.cpu().numpy()
+    dev = gbuffer.transmissibility.device
+    total = torch.zeros((height, width, 3), device=dev)
+    for li in np.nonzero(mask)[0]:
+        affine, rot_size = lights.affine[li], 0
+        if kinds[li] == LIGHT_DIRECTIONAL:
+            synth, rot_size = _directional_affine(affine.cpu().numpy(), height, width)
+            affine = torch.from_numpy(synth).to(dev)
+        total = total + _laser_direct_raw(gbuffer, affine, lights.energy[li],
+                                          height, width, rot_size=rot_size)
+    return total
 
 
 def _light_radius(affine: torch.Tensor) -> torch.Tensor:
@@ -403,6 +524,7 @@ def _mc_scatter_deposits(lights, field_textures, fields: RotatedFields,
                          gbuffer: GBuffer, n_photons: int,
                          generator: torch.Generator, override_bounces,
                          light_kinds, exclude_analytic: bool,
+                         exclude_collimated: bool = False,
                          n_tracers: int = 1):
     """Generic Monte-Carlo direct deposit stream: emit n photons across all
     lights; their energy lands at their rotated emission cells (the
@@ -410,7 +532,9 @@ def _mc_scatter_deposits(lights, field_textures, fields: RotatedFields,
     ForwardMonteCarlo.compute:68-86). Returns (flat_idx, values).
 
     exclude_analytic zeroes the photons of lights that the analytic phase
-    covers, so their direct light is not counted twice.
+    covers, and exclude_collimated those of the lights whose exact field
+    (collimated_direct_raw) is added at readout, so their direct light is
+    not counted twice.
 
     n_tracers > 1: one emission of T * (n // T) photons partitioned into T
     blocks (photon j belongs to tracer j // (n // T)); each is normalized by
@@ -427,6 +551,8 @@ def _mc_scatter_deposits(lights, field_textures, fields: RotatedFields,
     inject = bounces > 0
     if exclude_analytic:
         inject &= ~take_per_light(analytic_light_mask(lights, override_bounces), l_idx)
+    if exclude_collimated:
+        inject &= ~take_per_light(collimated_light_mask(lights, override_bounces), l_idx)
     tracer = torch.arange(n_per * n_tracers, device=pos.device) // n_per
     flat = _deposit_cells(fields, pos, direction) + tracer * (d_bins * s * s)
     return flat, torch.where(inject[:, None], energy, 0.0)
@@ -584,9 +710,9 @@ def rbt_frame_deposits(fields: RotatedFields, gbuffer: GBuffer,
     """One frame's photon work WITHOUT the scatter: returns the deposit
     stream (flat_idx, values, photons_emitted), flat_idx indexing the
     flattened (n_tracers*D*S*S) source planes; (None, None, n) when no
-    phase deposits."""
-    if exact_collimated:
-        raise NotImplementedError("exact_collimated (_laser_direct_raw) not ported yet")
+    phase deposits. exact_collimated drops the collimated lights' photons
+    from the generic Monte-Carlo direct phase: their exact field is added at
+    readout (tracers.RBTForwardIntegrator)."""
     height, width = gbuffer.transmissibility.shape
     pixel_count = float(width * height)
     n_emitted = n_photons
@@ -606,7 +732,7 @@ def rbt_frame_deposits(fields: RotatedFields, gbuffer: GBuffer,
             f, v = _mc_scatter_deposits(
                 lights, field_textures, fields, gbuffer, n_photons, generator,
                 override_bounces, light_kinds, exclude_analytic=analytic_direct,
-                n_tracers=n_tracers)
+                exclude_collimated=exact_collimated, n_tracers=n_tracers)
         all_flat.append(f)
         all_vals.append(v)
     if max_bounces >= 2:
@@ -623,6 +749,14 @@ def rbt_frame_deposits(fields: RotatedFields, gbuffer: GBuffer,
     return torch.cat(all_flat), torch.cat(all_vals), n_emitted
 
 
+def attenuation_scan(fields: RotatedFields, src_accum: tuple) -> torch.Tensor:
+    """Per-row recurrence O[x] = t[x]*O[x-1] + src[x]*sqrt(t[x]) over all
+    bins (kernel K1), stacked channel-last: (D, S, S, 3). The JAX version
+    takes its Pallas scan on the TPU and an associative scan elsewhere; the
+    port takes K1 on every device."""
+    return torch.stack(attenuation_scan_rows(fields.trans, *src_accum), dim=-1)
+
+
 def resolve_raw(fields: RotatedFields, src_accum: tuple, height: int, width: int,
                 traced_phase: bool = False, group: int = 0, n_groups: int = 1,
                 tracer: int = 0) -> torch.Tensor:
@@ -632,8 +766,8 @@ def resolve_raw(fields: RotatedFields, src_accum: tuple, height: int, width: int
     (kernels K2, K3): channel-planar end to end. This is the port's only
     path, on the card and on the CPU alike; on the CPU the kernels' plain
     versions run. (The JAX package takes it on the TPU and uses a dense
-    bilinear rotate elsewhere; `rotate_back` below is that dense path, kept
-    as a reference for the tests.)
+    bilinear rotate elsewhere; `rotate_back_dense` below is that dense path,
+    kept as a reference for the tests.)
 
     group/n_groups resolve only the bins d == group (mod n_groups); the sum
     over all groups equals the full resolve. tracer selects one tracer block
@@ -660,13 +794,42 @@ def resolve_raw(fields: RotatedFields, src_accum: tuple, height: int, width: int
 def rotate_back(fields: RotatedFields, deposited: torch.Tensor,
                 height: int, width: int,
                 traced_phase: bool = False) -> torch.Tensor:
+    """Sum the per-bin rotated deposit maps (D, S, S, C) into the target
+    frame (H, W, C): the JAX version's TPU branch on every device, the
+    channel-interleaved 3-shear of `rotate_bins` (K2, K3) with the final
+    shear fused with the sum over bins and kept to the central 64-aligned
+    rows.
+
+    traced_phase takes the bin angles from fields.phase on the device
+    (`rotate_bins`, for a per-frame jitter phase or a collimated light's own
+    angle); without it they are the phase-0 angles, static
+    (`rotate_bins_uniform`). The 3-shear samples with R(+a), so a bin of
+    angle theta_d rotates back by a = -theta_d."""
+    s, d = fields.size, fields.n_bins
+    oy = (s - height) // 2
+    ox = (s - width) // 2
+    lo = (oy // 64) * 64
+    hi = min(-(-(oy + height) // 64) * 64, s)
+    if traced_phase:
+        angles = -(torch.arange(d, dtype=torch.float32, device=deposited.device)
+                   + fields.phase) * (2.0 * np.pi / d)
+        rotated = rotate_bins(deposited, angles, reduce_rows=(lo, hi))
+    else:
+        rotated = rotate_bins_uniform(
+            deposited, tuple(-i * 2.0 * np.pi / d for i in range(d)), reduce_rows=(lo, hi))
+    return rotated[oy - lo:oy - lo + height, ox:ox + width].contiguous()
+
+
+def rotate_back_dense(fields: RotatedFields, deposited: torch.Tensor,
+                      height: int, width: int,
+                      traced_phase: bool = False) -> torch.Tensor:
     """Dense reference rotate-back: sample every bin's (S, S, C) deposit map
     at the target pixels with a bilinear gather and sum over bins. Plain
     PyTorch, used only by the tests as a second reference for resolve_raw.
 
     traced_phase has the JAX package's dense-path meaning, which is none:
     fields.cos/sin already fold the phase in, so the result is the same
-    either way (the flag selects the traced-angle shears on the TPU path)."""
+    either way."""
     s = fields.size
     dev = deposited.device
     ys, xs = torch.meshgrid(torch.arange(height, device=dev),

@@ -155,6 +155,40 @@ def test_rotate_planar_sum_fused_kernel_matches_plain(dev, s, d, delta):
                                    rtol=0)
 
 
+# rotate_bins on the card: 5 bins over all quadrants at S=128 and the
+# resolve's S=384, and one bin at a directional light's S=1024 (the exact
+# collimated field at 256x256), with and without the fused reduce.
+ROTATE_BINS_CASES = [(5, 128, None), (5, 384, (64, 320)), (1, 1024, (384, 640)),
+                     (1, 1024, None)]
+
+
+@pytest.mark.parametrize("uniform", [False, True])
+@pytest.mark.parametrize("d,s,reduce_rows", ROTATE_BINS_CASES)
+def test_rotate_bins_kernels_match_plain(dev, monkeypatch, uniform, d, s, reduce_rows):
+    """rotate_bins and rotate_bins_uniform through K2 and K3 (interleaved:
+    elem_scale 3 and row_div 3) against the same composition through the
+    plain shears on the card, 1e-5 of the maximum."""
+    angles = (0.3, -2.0, 2.9, 4.4, -0.785398)[:d] if d > 1 else (2.2,)
+    img = _rand(dev, 40, (d, s, s, 3))
+
+    def run():
+        if uniform:
+            return rotate.rotate_bins_uniform(img, angles, reduce_rows)
+        return rotate.rotate_bins(img, torch.tensor(angles, device=dev), reduce_rows)
+
+    before = (rotate.shear.launches, rotate.shear_reduce.launches)
+    got = run()
+    torch.cuda.synchronize()
+    fused = reduce_rows is not None
+    assert (rotate.shear.launches - before[0],
+            rotate.shear_reduce.launches - before[1]) == ((2, 1) if fused else (3, 0))
+    monkeypatch.setattr(rotate, "shear", rotate.shear_plain)
+    monkeypatch.setattr(rotate, "shear_reduce", rotate.shear_reduce_plain)
+    ref = run()
+    assert got.shape == ref.shape
+    torch.testing.assert_close(got, ref, atol=1e-5 * float(ref.abs().max()), rtol=0)
+
+
 # K4's edges. Bin sets: "bins" -i 2pi/d for i < d (5 runs over four
 # quadrants), "quarter_turns" -i pi/2 for i < 8 (8 runs of one image, the
 # most the kernel takes). S = 100 leaves partial 32x32 tiles, S = 97 rows that
