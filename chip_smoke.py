@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from litbox_tpu_torch/csrc (one nvcc call)
-and runs eight phases, each printed with its wall seconds:
+and runs nine phases, each printed with its wall seconds:
 
 - kernels: each kernel (K1 scan, K2 shear, K3 shear_reduce, K4 fused
   rotate-and-sum) held against its plain PyTorch version at the shapes of
@@ -52,6 +52,21 @@ and runs eight phases, each printed with its wall seconds:
   convert.unet_from_flax): ms an on_step; oracle (the plain march): ms a
   frame. K1-K3 must be launched by reference and by collimated, and a
   Simulation on the card must refuse a CPU scene.
+- hybrid: Strategy.HYBRID and the deterministic multi-bounce cascade, with
+  TF32 off: reference (the README quickstart with the hybrid strategy on
+  'rbt', forward refresh 1, 32 steps: ms a step, the first output read,
+  peak memory, host syncs over 9 steps gated at 3 + 1, the backward frame
+  count); realtime (REALTIME_1080P's sim size 480x272 on
+  runs/prof_backward_r5.py's cloudy scene, Mode.REALTIME, 16 steps: ms a
+  step, the count of forward resolves, and backward_gather_rbt at S=640 by
+  CUDA events beside its bound, held against the same call on CPU copies to
+  1e-4 of its maximum); oracle (the faithful march, 2 frames: ms a frame);
+  dom (the cloudy scene at 256^2 with 3 bounces, dom_bounce on both
+  integrators, refresh 8, 16 steps: ms of one cascade refresh by CUDA
+  events, the cascade held against its composition through the plain K1-K3
+  on the card to 1e-5, linearity to 1e-5, the output's mass within 5% of
+  the same steps with Monte-Carlo bounces). K1-K3 must be launched by
+  reference and by dom, and each output must lie on the card.
 - rotfused_split: the four variants of K4's cost split (V1-V4,
   litbox_tpu_torch/prof/rotfused.py, runs/prof_rotfused.py's kernels) and
   K4 itself (also with a 1.2 rad delta, LARGE_DELTA), timed at
@@ -77,7 +92,7 @@ Every kernel counter is set to 0 just before a path is driven and read just
 after; a kernel of the path that was not launched, or any failed check,
 raises, so the exit code is not 0. Each K1-K3 launch's shape and static
 arguments are recorded, in the kernels phase where the kernel is held
-against its plain version and on the paths from frame to simulation; a
+against its plain version and on the paths from frame to hybrid; a
 path launch at a shape the kernels phase did not hold raises too (the
 `kernel_signatures` line). The lines before the last carry one JSON
 line per phase, the kernels line and the card's name and power limit; the
@@ -111,12 +126,15 @@ import torch.nn.functional as F
 from litbox_tpu_torch import convert
 from litbox_tpu_torch.core import luts
 from litbox_tpu_torch.core.types import REALTIME_1080P
-from litbox_tpu_torch.engine import Mode, Simulation, pipeline, realtime
+from litbox_tpu_torch.engine import Mode, Simulation, Strategy, pipeline, realtime
 from litbox_tpu_torch.nn.unet import LitboxDenoiserNet
 from litbox_tpu_torch.ops import attnscan, cuda_lib, rotate
 from litbox_tpu_torch.prof import microops, rotfused
 from litbox_tpu_torch.scene import SceneBuilder, rasterize
-from litbox_tpu_torch.sim import rbt
+from litbox_tpu_torch.sim import rbt, tracers
+from litbox_tpu_torch.sim.backward import (backward_bin_for_frame, backward_gather,
+                                           backward_gather_rbt)
+from litbox_tpu_torch.sim.dom import dom_bounce_sources
 from litbox_tpu_torch.sim.oracle import to_hdr
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -445,32 +463,33 @@ def check_shear_reduce(gen, n, s, row_lo, row_hi, cold=False) -> dict:
     return out
 
 
-def check_shear_interleaved(gen, s, row_div, elem_scale) -> dict:
-    """K2 on one channel-interleaved image, as rotate_bins runs it on the
-    exact collimated field: the x shear (1, S, 3S) at elem_scale 3 or the y
-    shear (1, 3S, S) at row_div 3. No single PyTorch call shears this
-    layout, so library_ms is null."""
+def check_shear_interleaved(gen, s, row_div, elem_scale, n=1) -> dict:
+    """K2 on n channel-interleaved images, as rotate_bins runs it on the
+    exact collimated field (one) and on the cascade's D bins: the x shear
+    (n, S, 3S) at elem_scale 3 or the y shear (n, 3S, S) at row_div 3. No
+    single PyTorch call shears this layout, so library_ms is null."""
     rows, width = s * row_div, s * elem_scale
-    img = torch.rand((1, rows, width), generator=gen, device="cuda")
-    coef = (torch.rand((1,), generator=gen, device="cuda") - 0.5) * 1.4
+    img = torch.rand((n, rows, width), generator=gen, device="cuda")
+    coef = (torch.rand((n,), generator=gen, device="cuda") - 0.5) * 1.4
     run = lambda: rotate.shear(img, coef, row_div, elem_scale, s)
     plain = lambda: rotate.shear_plain(img, coef, row_div, elem_scale, s)
     with recording("checked"):
         got = run()
     out = compare("shear", got, plain())
-    b, by = bound(tap_bytes(coef, s, 0, rows, row_div, elem_scale) + 4 * rows * width,
-                  4 * rows * width)
-    out.update(shape=f"(1,{rows},{width}) row_div {row_div} elem_scale {elem_scale}",
+    b, by = bound(tap_bytes(coef, s, 0, rows, row_div, elem_scale) + 4 * n * rows * width,
+                  4 * n * rows * width)
+    out.update(shape=f"({n},{rows},{width}) row_div {row_div} elem_scale {elem_scale}",
                ms=time_ms(run, cold=True), plain_ms=time_ms(plain, cold=True),
                bound_ms=b, bound_by=by, library_ms=None)
     return out
 
 
-def check_shear_reduce_interleaved(gen, s, row_lo, row_hi) -> dict:
-    """K3 on one channel-interleaved (1, S, 3S) image at elem_scale 3, rows
-    [row_lo, row_hi): rotate_bins' fused last shear on one bin."""
-    img = torch.rand((1, s, 3 * s), generator=gen, device="cuda")
-    coef = (torch.rand((1,), generator=gen, device="cuda") - 0.5) * 0.9
+def check_shear_reduce_interleaved(gen, s, row_lo, row_hi, n=1) -> dict:
+    """K3 on n channel-interleaved (n, S, 3S) images at elem_scale 3, rows
+    [row_lo, row_hi): rotate_bins' fused last shear on one bin (the exact
+    collimated field) or on the cascade's D bins, summed in order."""
+    img = torch.rand((n, s, 3 * s), generator=gen, device="cuda")
+    coef = (torch.rand((n,), generator=gen, device="cuda") - 0.5) * 0.9
     args = (1, 3, s, rotate.ALPHA_BOUND, row_lo, row_hi, 1)
     run = lambda: rotate.shear_reduce(img, coef, *args)
     plain = lambda: rotate.shear_reduce_plain(img, coef, *args)
@@ -479,8 +498,8 @@ def check_shear_reduce_interleaved(gen, s, row_lo, row_hi) -> dict:
     out = compare("shear_reduce", got, plain())
     rows = row_hi - row_lo
     b, by = bound(tap_bytes(coef, s, row_lo, row_hi, 1, 3) + 4 * rows * 3 * s,
-                  4 * rows * 3 * s)
-    out.update(shape=f"(1,{s},{3 * s}) rows [{row_lo},{row_hi}) elem_scale 3",
+                  4 * n * rows * 3 * s)
+    out.update(shape=f"({n},{s},{3 * s}) rows [{row_lo},{row_hi}) elem_scale 3",
                ms=time_ms(run, cold=True), plain_ms=time_ms(plain, cold=True),
                bound_ms=b, bound_by=by, library_ms=None)
     return out
@@ -564,7 +583,8 @@ def kernels_phase() -> dict:
     # configuration's group of 16 at S=384, K2 and K3 from a flushed L2.
     # At S=640 also a full scan of a two-tracer source's second tracer
     # (src_offset D) and the fused_resolve phase's resolve of 1/4 of the
-    # bins (3*32 images).
+    # bins (3*32 images). The hybrid phase's cascade at S=384: K2 and K3 on
+    # the D bins' interleaved rows (rotate_back and the forward rotation).
     # main() raises if a path launches K1-K3 at a shape not held here.
     results = {
         "attenuation_scan_rows": (check_scan(gen, d, 384, 1, 0, 1),
@@ -584,14 +604,17 @@ def kernels_phase() -> dict:
                   check_shear_interleaved(gen, 384, 1, 3),
                   check_shear_interleaved(gen, 384, 3, 1),
                   check_shear(gen, 3 * d // 16, 384, cold=True),
-                  check_shear(gen, 3 * d // 4, 640)),
+                  check_shear(gen, 3 * d // 4, 640),
+                  check_shear_interleaved(gen, 384, 1, 3, n=d),
+                  check_shear_interleaved(gen, 384, 3, 1, n=d)),
         "shear_reduce": (check_shear_reduce(gen, 3 * d, 384, 64, 320),
                          check_shear_reduce(gen, 3 * d, 640, 128, 512),
                          check_shear_reduce(gen, 3 * d // 16, 640, 128, 512, cold=True),
                          check_shear_reduce_interleaved(gen, 1024, 384, 640),
                          check_shear_reduce_interleaved(gen, 384, 64, 320),
                          check_shear_reduce(gen, 3 * d // 16, 384, 64, 320, cold=True),
-                         check_shear_reduce(gen, 3 * d // 4, 640, 128, 512)),
+                         check_shear_reduce(gen, 3 * d // 4, 640, 128, 512),
+                         check_shear_reduce_interleaved(gen, 384, 64, 320, n=d)),
         "rotate_planar_sum_fused": (
             check_rotfused(gen, 384, 1, 0.0), check_rotfused(gen, 640, 1, 0.0),
             check_rotfused(gen, 384, 1, jitter), check_rotfused(gen, 640, 1, jitter),
@@ -1290,9 +1313,9 @@ def _read_ms(fn):
     return value, (time.perf_counter() - t0) * 1e3
 
 
-def _hdr_ok(name: str, hdr, failures: list) -> None:
-    if hdr.shape != (SIM_SIZE, SIM_SIZE, 3) or not bool(torch.isfinite(hdr).all()):
-        failures.append(f"{name}: HDR is not finite of shape ({SIM_SIZE}, {SIM_SIZE}, 3)")
+def _hdr_ok(name: str, hdr, failures: list, shape=(SIM_SIZE, SIM_SIZE, 3)) -> None:
+    if tuple(hdr.shape) != shape or not bool(torch.isfinite(hdr).all()):
+        failures.append(f"{name}: HDR is not finite of shape {shape}")
     elif float(hdr.min()) < 0:
         failures.append(f"{name}: HDR has negative values (min {float(hdr.min())})")
 
@@ -1495,6 +1518,306 @@ def simulation_phase() -> dict:
     launches = {name: sum(r["launches"][name] for r in runs.values() if "launches" in r)
                 for name in COUNTERS}
     return dict(size=SIM_SIZE, rays_per_frame=SIM_RAYS, launches=launches, **runs)
+
+
+# The hybrid strategy and the cascade: the README quickstart with
+# Strategy.HYBRID, the realtime profile's sim size, the faithful march and
+# the deterministic multi-bounce cascade.
+HYB_STEPS = 32
+HYB_REALTIME_STEPS = 16
+HYB_ORACLE_FRAMES = 2
+HYB_DOM_STEPS = 16
+HYB_DOM_REFRESH = 8
+HYB_DOM_BOUNCES = 3  # two cascade waves
+# backward_gather_rbt on the card against the same call on CPU copies,
+# relative to its maximum: float32 products summed in other orders.
+GATHER_TOL = 1e-4
+# The cascade against its composition through the plain K1-K3 on the card,
+# relative to its maximum (float32 roundings of one composition), and the
+# linearity check.
+DOM_TOL = 1e-5
+# DOM's accumulated output against the Monte-Carlo bounce chains' in mass.
+DOM_MC_MASS = 0.05
+
+
+def cloudy_scene(w: int, h: int, bounces: int = 2):
+    """runs/prof_backward_r5.py's scene (build, :40-55): a point light in a
+    cloudy sprite (a normal-free medium) from a smoothed random texture of
+    seed 0, the light's bounce count `bounces` (the script's 2 by
+    default)."""
+    rng = np.random.default_rng(0)
+    cloud = rng.uniform(0.0, 1.0, (256, 256)).astype(np.float32)
+    for _ in range(3):
+        cloud = (np.roll(cloud, 1, 0) + np.roll(cloud, -1, 0)
+                 + np.roll(cloud, 1, 1) + np.roll(cloud, -1, 1) + cloud) / 5.0
+    b = SceneBuilder(texture_size=256)
+    b.add_point_light((w * 0.5, h * 0.55), radius=4.0, color=(1.0, 0.85, 0.6),
+                      intensity=2.0, bounces=bounces)
+    b.add_sprite((w / 2, h / 2), (w / 2, h / 2), color=(1, 1, 1, 1), log_density=-1.0,
+                 texture=np.stack([cloud] * 3 + [cloud], -1))
+    return b.build(max_lights=2, max_shapes=2, device="cuda")
+
+
+@contextlib.contextmanager
+def counting_resolves(counter: dict):
+    """Count the tracers' full forward resolves (resolve_raw calls)."""
+    real = tracers.resolve_raw
+
+    def counted(*args, **kwargs):
+        counter["n"] += 1
+        return real(*args, **kwargs)
+
+    tracers.resolve_raw = counted
+    try:
+        yield
+    finally:
+        tracers.resolve_raw = real
+
+
+def _on_card(name: str, t, failures: list) -> None:
+    """The CPU-side check that a phase did not fall back to the CPU."""
+    if t.device.type != "cuda":
+        failures.append(f"{name}: the output lies on {t.device}, not the card")
+
+
+def _hybrid_reference(scene, failures: list) -> dict:
+    """The README quickstart with Strategy.HYBRID on 'rbt' in REFERENCE
+    (forward refresh 1): HYB_STEPS steps, the first output read, peak
+    memory; then SIM_SYNC_STEPS steps of a second run under torch's sync
+    debug mode, gated at the forward-only reference's 3 + 1."""
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    sim = Simulation(strategy=Strategy.HYBRID, **dict(README_SIM, frame_limit=HYB_STEPS))
+    sim.set_scene(scene)
+    reset_counts()
+    first_ms, ms_per_step = _timed_steps(sim, HYB_STEPS)
+    hdr, read_ms = _read_ms(lambda: sim.simulation_output_hdr)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _hdr_ok("hybrid reference", hdr, failures)
+    _on_card("hybrid reference", hdr, failures)
+    frames = [t.backward.frame_count for t in sim._tracers]
+    if frames != [HYB_STEPS] * 2:
+        failures.append(f"hybrid reference: backward frame counts {frames}, not {HYB_STEPS}")
+    if any(t.forward_refresh_interval != 1 for t in sim._tracers):
+        failures.append("hybrid reference: the forward refresh is not 1")
+    sync_sim = Simulation(strategy=Strategy.HYBRID, seed=1, **README_SIM)
+    sync_sim.set_scene(scene)
+    first = host_syncs(sync_sim.step)
+    later = host_syncs(lambda: [sync_sim.step() for _ in range(SIM_SYNC_STEPS - 1)])
+    if len(first) > 3 or len(later) > 1:
+        failures.append(f"hybrid reference: {len(first)} host syncs at the first step and "
+                        f"{len(later)} after, over the forward-only 3 + 1")
+    return dict(steps=sim.iterations_since_clear, first_step_ms=first_ms,
+                ms_per_step=ms_per_step, first_output_read_ms=read_ms,
+                backward_frames=frames, hdr_mean=float(hdr.mean()),
+                host_syncs=_sync_record(first, later), peak_memory_bytes=peak,
+                allocated_before_bytes=before, launches=launches)
+
+
+def _gather_rbt_record(sim, failures: list) -> dict:
+    """backward_gather_rbt at the realtime size on the last frame's fields and
+    forward HDR: device ms (CUDA events, median of 7), its bound, the pair
+    tensor's bytes, peak memory, and the card's result against the same call
+    on CPU copies."""
+    t = sim.tracer_a
+    fields, gb, hdr = t.backward.rbt_fields, t.gbuffer, t._cached_forward_hdr
+    s, d = fields.size, fields.n_bins
+    b = backward_bin_for_frame(5, d)
+    run = lambda: backward_gather_rbt(fields, gb, hdr, b)
+    got = run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = time_ms(run)
+    peak = torch.cuda.max_memory_allocated() - base
+    cpu = lambda x: {k: v.cpu() for k, v in vars(x).items()}
+    ref = backward_gather_rbt(type(fields)(**cpu(fields)), type(gb)(**cpu(gb)), hdr.cpu(), b)
+    err = float((got.cpu() - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    if not bool(torch.isfinite(got).all()) or rel > GATHER_TOL:
+        failures.append(f"backward_gather_rbt card vs CPU: {rel} of max > {GATHER_TOL}")
+    _on_card("backward_gather_rbt", got, failures)
+    block, nb = 128, s // 128
+    h, w = gb.height, gb.width
+    # Least work: read the bin's C row field, the forward HDR, albedo and
+    # transmissibility once, write the output once; within-block pairs
+    # (an exp and 6 flops a pair and channel), then one (S, 128) x (128, 3S)
+    # product a later block.
+    n_bytes = 4 * (s * s + h * w * (3 + 4 + 1 + 3))
+    n_ops = s * nb * block * block * (1 + 2 * 3) + (nb - 1) * s * block * 3 * s * 2
+    bnd, by = bound(n_bytes, n_ops)
+    return dict(shape=f"S={s} block {block} frame {h}x{w}", ms=ms, bound_ms=bnd,
+                bound_by=by, pair_tensor_bytes=4 * s * nb * block * block,
+                pair_tensor_ms_at_hbm=2 * 4 * s * nb * block * block / HBM_BYTES_PER_S * 1e3,
+                peak_extra_bytes=peak, vs_cpu_max_abs_err=err, vs_cpu_rel_err=rel,
+                tol=GATHER_TOL)
+
+
+def _hybrid_realtime(failures: list) -> dict:
+    """REALTIME_1080P's sim size (480x272, S=640, D=128) on the cloudy scene
+    with Strategy.HYBRID in Mode.REALTIME (forward refresh 4):
+    HYB_REALTIME_STEPS steps, the count of full forward resolves, and
+    backward_gather_rbt at this shape."""
+    w, h = REALTIME_1080P.sim_width, REALTIME_1080P.sim_height
+    scene = cloudy_scene(w, h)
+    sim = Simulation(width=w, height=h, strategy=Strategy.HYBRID, mode=Mode.REALTIME,
+                     rays_per_frame=SIM_RAYS)
+    sim.set_scene(scene)
+    sim.step()
+    torch.cuda.synchronize()
+    reset_counts()
+    resolves = {"n": 0}
+    with counting_resolves(resolves):
+        t0 = time.perf_counter()
+        for _ in range(HYB_REALTIME_STEPS):
+            sim.step()
+        hdr = sim.display_hdr
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / HYB_REALTIME_STEPS * 1e3
+    launches = read_counts()
+    _hdr_ok("hybrid realtime", hdr, failures, shape=(h, w, 3))
+    _on_card("hybrid realtime", hdr, failures)
+    refresh = [t.forward_refresh_interval for t in sim._tracers]
+    if refresh != [4, 4]:
+        failures.append(f"hybrid realtime: forward refresh {refresh}, not 4")
+    # Simulation clears every tracer at each REALTIME step (Simulation.cs:370),
+    # so each step's backward frame is its first and resolves the forward HDR:
+    # the JAX package's schedule, two resolves a step.
+    if resolves["n"] != 2 * HYB_REALTIME_STEPS:
+        failures.append(f"hybrid realtime: {resolves['n']} forward resolves, "
+                        f"not {2 * HYB_REALTIME_STEPS}")
+    if missing := unlaunched(launches, RESOLVE_KERNELS):
+        failures.append(f"hybrid realtime: kernels of the path were not launched: {missing}")
+    return dict(size=f"{w}x{h}", steps=HYB_REALTIME_STEPS, ms_per_step=ms,
+                forward_resolves=resolves["n"], forward_refresh=refresh,
+                hdr_mean=float(hdr.mean()), launches=launches,
+                backward_gather_rbt=_gather_rbt_record(sim, failures))
+
+
+def _hybrid_oracle(scene, failures: list) -> dict:
+    """engine='oracle' with Strategy.HYBRID: the plain march forward and the
+    faithful backward march, HYB_ORACLE_FRAMES frames at 256^2."""
+    sim = Simulation(strategy=Strategy.HYBRID, **dict(
+        README_SIM, engine="oracle", frame_limit=HYB_ORACLE_FRAMES, measurement_interval=0))
+    sim.set_scene(scene)
+    first_ms, ms_per_step = _timed_steps(sim, HYB_ORACLE_FRAMES)
+    hdr = sim.simulation_output_hdr
+    _hdr_ok("hybrid oracle", hdr, failures)
+    _on_card("hybrid oracle", hdr, failures)
+    if any(t.backward.rbt_fields is not None for t in sim._tracers):
+        failures.append("hybrid oracle: the backward gather took RBT fields")
+    if [t.backward.frame_count for t in sim._tracers] != [HYB_ORACLE_FRAMES] * 2:
+        failures.append("hybrid oracle: backward frame counts")
+    # One backward march alone, on the last forward HDR (host clock).
+    t = sim.tracer_a
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    interval = max(0.01, t.backward.integration_interval * SIM_SIZE)
+    march, march_ms = _read_ms(lambda: backward_gather(
+        t.gbuffer, t._cached_forward_hdr, tracers._teardrop_on(hdr.device), gen, interval))
+    _on_card("backward_gather", march, failures)
+    return dict(frames=HYB_ORACLE_FRAMES, first_frame_ms=first_ms,
+                ms_per_frame=(first_ms + ms_per_step * (HYB_ORACLE_FRAMES - 1))
+                / HYB_ORACLE_FRAMES, march_steps=int(2 ** 0.5 * SIM_SIZE) + 4,
+                march_ms=march_ms, hdr_mean=float(hdr.mean()))
+
+
+def _dom_sim(scene, dom: bool):
+    sim = Simulation(**dict(README_SIM, frame_limit=HYB_DOM_STEPS,
+                            measurement_interval=HYB_DOM_REFRESH))
+    sim.set_scene(scene)
+    sim._validate_tracers()
+    for t in sim._tracers:
+        t.forward.dom_bounce = dom
+        t.forward.dom_refresh = HYB_DOM_REFRESH
+    return sim
+
+
+def _hybrid_dom(failures: list) -> dict:
+    """The cloudy scene at 256^2 with 3 bounces (two cascade waves) on 'rbt'
+    in REFERENCE with dom_bounce on both integrators (refresh 8):
+    HYB_DOM_STEPS steps; one cascade refresh timed by CUDA events; the
+    cascade against its composition through the plain K1-K3 on the card;
+    linearity; the output's mass against the same steps with Monte-Carlo
+    bounces."""
+    scene = cloudy_scene(SIM_SIZE, SIM_SIZE, bounces=HYB_DOM_BOUNCES)
+    sim = _dom_sim(scene, True)
+    reset_counts()
+    first_ms, ms_per_step = _timed_steps(sim, HYB_DOM_STEPS)
+    hdr = sim.simulation_output_hdr
+    torch.cuda.synchronize()
+    launches = read_counts()
+    _hdr_ok("dom", hdr, failures)
+    _on_card("dom", hdr, failures)
+    fwd = sim.tracer_a.forward
+    if not fwd._dom_active() or fwd._dom_waves != HYB_DOM_BOUNCES - 1:
+        failures.append(f"dom: the cascade is not on ({fwd._dom_ok}, {fwd._dom_waves} waves)")
+    if missing := unlaunched(launches, RESOLVE_KERNELS):
+        failures.append(f"dom: kernels of the path were not launched: {missing}")
+
+    fields, gb, src = fwd._fields, fwd.gbuffer, fwd._src
+    cascade = lambda: dom_bounce_sources(fields, gb, src, n_waves=fwd._dom_waves)
+    refresh = lambda: rbt.resolve_raw(fields, cascade(), gb.height, gb.width)
+    got = cascade()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    refresh_ms = time_ms(refresh)
+    peak = torch.cuda.max_memory_allocated() - base
+    with plain_kernels():
+        plain = cascade()
+    err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
+    rel = err / max(float(p.abs().max()) for p in plain)
+    if rel > DOM_TOL or not all(bool(torch.isfinite(g).all()) for g in got):
+        failures.append(f"dom: cascade vs plain composition {rel} of max > {DOM_TOL}")
+    doubled = dom_bounce_sources(fields, gb, tuple(2.0 * c for c in src),
+                                 n_waves=fwd._dom_waves)
+    lin = max(float((x - 2.0 * y).abs().max()) for x, y in zip(doubled, got))
+    lin_rel = lin / max(2.0 * float(y.abs().max()) for y in got)
+    if lin_rel > DOM_TOL:
+        failures.append(f"dom: twice the sources give {lin_rel} of max off twice the output")
+    del doubled, plain
+
+    mc = _dom_sim(scene, False)
+    mc_first, mc_ms = _timed_steps(mc, HYB_DOM_STEPS)
+    mc_hdr = mc.simulation_output_hdr
+    mass = float(hdr.double().sum()) / float(mc_hdr.double().sum())
+    if abs(mass - 1) > DOM_MC_MASS:
+        failures.append(f"dom: output mass {mass} of the Monte-Carlo bounces'")
+    return dict(steps=HYB_DOM_STEPS, waves=fwd._dom_waves, refresh=HYB_DOM_REFRESH,
+                first_step_ms=first_ms, ms_per_step=ms_per_step,
+                cascade_refresh_ms=refresh_ms, cascade_refresh_peak_extra_bytes=peak,
+                vs_plain_max_abs_err=err, vs_plain_rel_err=rel, tol=DOM_TOL,
+                linearity_rel_err=lin_rel, mass_vs_mc=mass,
+                mc_ms_per_step=mc_ms, hdr_mean=float(hdr.mean()), launches=launches)
+
+
+def hybrid_phase() -> dict:
+    """The hybrid strategy and the cascade in four configurations
+    (reference, realtime, oracle, dom), with TF32 off for the backward
+    gather's float32 products; K1-K3 must be launched by reference and by
+    dom."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    failures = []
+    scene = readme_scene()
+    runs = {"reference": _hybrid_reference(scene, failures),
+            "realtime": _hybrid_realtime(failures),
+            "oracle": _hybrid_oracle(scene, failures),
+            "dom": _hybrid_dom(failures)}
+    for name in ("reference", "dom"):
+        if missing := unlaunched(runs[name]["launches"], RESOLVE_KERNELS):
+            failures.append(f"{name}: kernels of the path were not launched: {missing}")
+    tf32 = dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                cudnn=torch.backends.cudnn.allow_tf32)
+    if any(tf32.values()):
+        failures.append(f"hybrid: TF32 was turned on during the phase: {tf32}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    launches = {name: sum(r["launches"][name] for r in runs.values() if "launches" in r)
+                for name in COUNTERS}
+    return dict(size=SIM_SIZE, rays_per_frame=SIM_RAYS, allow_tf32=tf32,
+                launches=launches, **runs)
 
 
 def rotfused_split_phase() -> tuple[dict, dict]:
@@ -1802,6 +2125,12 @@ def main() -> None:
     phase("simulation", t0)
     print(json.dumps({"simulation": sim}))
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    hyb = hybrid_phase()
+    phase("hybrid", t0)
+    print(json.dumps({"hybrid": hyb}))
+    torch.cuda.empty_cache()
     _recording[0] = None
     print(json.dumps({"kernel_signatures": dict(
         checked=len(SIGNATURES["checked"]), path=len(SIGNATURES["path"]),
@@ -1839,7 +2168,8 @@ def main() -> None:
     # microops phase for B5's five; every path's counts beside it.
     paths = {"bench_frame": frame["launches"], "pipeline": pipe["launches"],
              "fused_resolve": fused["launches"], "production": prod["launches"],
-             "simulation": sim["launches"], "rotfused_split": split_launches,
+             "simulation": sim["launches"], "hybrid": hyb["launches"],
+             "rotfused_split": split_launches,
              "microops": micro_launches}
     drives = {"rotate_planar_sum_fused": "fused_resolve",
               **{name: "rotfused_split" for name in SPLIT},

@@ -1,5 +1,5 @@
-"""Texture sampling (counterpart of the JAX package's core/sampling.py;
-its LUT samplers and `gather_2d` are not ported).
+"""Texture and LUT sampling (counterpart of the JAX package's
+core/sampling.py).
 
 Conventions: fields are (H, W[, C]) tensors indexed [y, x]; continuous
 positions are in texel units with texel centers at (i + 0.5); `uv` variants
@@ -54,6 +54,34 @@ def sample_nearest_uv(field: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     xy = torch.stack([uv[..., 0] * float(field.shape[1]),
                       uv[..., 1] * float(field.shape[0])], -1)
     return sample_nearest(field, xy)
+
+
+def sample_lut(table: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Sample a (N, C) LUT at u in [0, 1] with the reference's texel-center
+    window adjustment (LUT.cs remarks: u' = 0.5/N + u*(1 - 1/N)) followed by
+    linear filtering; net effect: x = u * (N - 1)."""
+    n = table.shape[0]
+    x = torch.clamp(u, 0.0, 1.0) * (n - 1)
+    i0 = torch.floor(x).long().clamp(0, n - 2)
+    f = (x - i0.to(x.dtype))[..., None]
+    return table[i0] * (1 - f) + table[i0 + 1] * f
+
+
+def sample_lut_mxu(table: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """sample_lut as a one-hot matmul: each row of the (B, N) weight matrix
+    holds the two linear weights. The JAX version's form for the TPU's
+    matrix unit; here a float32 `torch.matmul`."""
+    n = table.shape[0]
+    x = torch.clamp(u, 0.0, 1.0) * (n - 1)
+    idx = torch.arange(n, dtype=x.dtype, device=x.device)
+    w = torch.clamp(1.0 - torch.abs(x[..., None] - idx), min=0.0)
+    return torch.matmul(w, table.to(torch.float32))
+
+
+def gather_2d(field: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor) -> torch.Tensor:
+    """Clamped integer gather from (H, W[, C])."""
+    h, w = field.shape[0], field.shape[1]
+    return field[iy.long().clamp(0, h - 1), ix.long().clamp(0, w - 1)]
 
 
 def downsample2x_mean(img: torch.Tensor) -> torch.Tensor:

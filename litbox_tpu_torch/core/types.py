@@ -87,6 +87,18 @@ class GBuffer:
         return self.albedo.shape[1]
 
 
+@dataclasses.dataclass(frozen=True)
+class GBufferPyramid:
+    """Custom transmissibility mip chain (reference: GBuffer.compute:31-61).
+
+    Each level is (h, w, 4): (average, pairwise-min, variance, leaf-flag).
+    Level 0 mirrors the full-res transmissibility with variance/leaf in z/w.
+    """
+
+    levels: tuple
+    quadtree: torch.Tensor  # (H, W) leaf lod per texel (GBuffer.compute:109-120)
+
+
 def luminance(rgb: torch.Tensor) -> torch.Tensor:
     """Rec.709 luminance (LitboxCommon.cginc:103-105)."""
     wr, wg, wb = LUMINANCE_WEIGHTS

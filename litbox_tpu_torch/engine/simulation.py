@@ -13,10 +13,9 @@ Everything runs on `device` ("cuda" unless the caller asks for "cpu"); a
 scene on another device is refused. One `torch.Generator` on that device,
 seeded from `seed`, feeds every tracer in turn. The host reads the scene
 only when it changes: the structural diff of `set_scene`, the lights'
-bounce counts and each tracer's per-scene specializations. Only the
-forward-only strategy is ported: `Strategy.HYBRID` raises, and the JAX
-version's `forward_refresh_interval` (a setting of the hybrid strategy) is
-not a field.
+bounce counts and each tracer's per-scene specializations. Both
+strategies run: the forward-only `LightTransportTracer` and the hybrid
+`HybridTracer` (the forward pass feeding the backward gather).
 """
 
 from __future__ import annotations
@@ -32,7 +31,7 @@ from ..core.types import GBuffer, SimulationProfile
 from ..post.tracer_post import compute_cv_and_mips, importance_pyramid, measure_convergence
 from ..scene.gbuffer import rasterize
 from ..scene.scene import Scene
-from ..sim.tracers import LightTransportTracer, make_paired_light_transport
+from ..sim.tracers import HybridTracer, LightTransportTracer, make_paired_light_transport
 
 
 def _leaves(tree, path=()):
@@ -92,6 +91,11 @@ class Simulation:
     # (both variance tracers in ONE combined RBT trace per frame;
     # LIGHT_TRANSPORT only).
     engine: str = "rbt"
+    # Hybrid-strategy forward->backward refresh cadence: 1 is the
+    # reference's cadence (HybridTracer.cs:17, the backward gather re-reads
+    # the forward HDR every frame); REALTIME mode takes 4 to amortize the
+    # forward resolve unless it is set (tracers.HybridTracer).
+    forward_refresh_interval: int | None = None
     device: str = "cuda"
 
     def __post_init__(self):
@@ -220,12 +224,15 @@ class Simulation:
                         "strategy only (Hybrid keeps per-tracer backward "
                         "accumulators; use engine='rbt')")
                 self._tracers = make_paired_light_transport()
-            else:
-                if self.strategy != Strategy.LIGHT_TRANSPORT:
-                    raise NotImplementedError(
-                        "Strategy.HYBRID (HybridTracer with the backward gather) "
-                        "is not ported; use Strategy.LIGHT_TRANSPORT")
+            elif self.strategy == Strategy.LIGHT_TRANSPORT:
                 self._tracers = [LightTransportTracer(engine=self.engine)
+                                 for _ in range(2)]
+            else:
+                refresh = self.forward_refresh_interval
+                if refresh is None:
+                    refresh = 4 if self.mode == Mode.REALTIME else 1
+                self._tracers = [HybridTracer(engine=self.engine,
+                                              forward_refresh_interval=refresh)
                                  for _ in range(2)]
             self._strategy_built = (self.strategy, self.engine)
             self._dirty = True
@@ -235,6 +242,8 @@ class Simulation:
             t.forward.override_bounce_count = (
                 None if self.photon_bounces == -1 else self.photon_bounces)
             t.forward.max_bounces = self._max_bounces()
+            if isinstance(t, HybridTracer):
+                t.backward.integration_interval = self.integration_interval
 
     def _max_bounces(self) -> int:
         """The deepest active light's bounce count (read at set_scene), or
@@ -268,8 +277,9 @@ class Simulation:
         self.wants_importance_map = True
         if self._tracers is None:
             return None
-        rads = [t.early_radiance if t.early_radiance is not None
-                else t.tracer_output for t in self._tracers]
+        # Each early radiance read once: the hybrid's is a forward resolve.
+        rads = [r if (r := t.early_radiance) is not None else t.tracer_output
+                for t in self._tracers]
         self.importance_map = importance_pyramid(rads[0], rads[1])
         return self.importance_map
 
@@ -312,11 +322,12 @@ class Simulation:
         for t in self._tracers:
             t.begin_trace(self._scene, gen)
 
-        # Gate check first: early radiance may cost a forward resolve.
-        if (self._should_update_importance_map()
-                and all(t.early_radiance is not None for t in self._tracers)):
-            self.importance_map = importance_pyramid(
-                self._tracers[0].early_radiance, self._tracers[1].early_radiance)
+        # Gate check first: the hybrid's early radiance is a forward resolve,
+        # read once a tracer.
+        if self._should_update_importance_map():
+            early = [t.early_radiance for t in self._tracers]
+            if all(r is not None for r in early):
+                self.importance_map = importance_pyramid(*early)
 
         for t in self._tracers:
             t.end_trace(self.importance_map, gen)

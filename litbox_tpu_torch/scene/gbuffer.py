@@ -1,4 +1,5 @@
-"""GBuffer rasterization (counterpart of the JAX package's scene/gbuffer.py).
+"""GBuffer rasterization and the transmissibility pyramid (counterpart of
+the JAX package's scene/gbuffer.py).
 
 An analytic rasterizer in place of the reference's hidden ortho camera +
 RT/Object shader pass (`SimulationCamera.cs:87-171`, `RTObjectMat.shader:79-90`):
@@ -13,9 +14,10 @@ resolution-invariant exponent of RTObjectMat.shader:83-86.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..core.sampling import sample_bilinear_uv
-from ..core.types import SHAPE_ELLIPSE, SHAPE_RECT, GBuffer, affine_apply
+from ..core.types import SHAPE_ELLIPSE, SHAPE_RECT, GBuffer, GBufferPyramid, affine_apply
 from .scene import Scene
 
 
@@ -96,3 +98,79 @@ def rasterize(scene: Scene, height: int, width: int) -> GBuffer:
         n4 = torch.cat([n3, shapes.alignment[i].expand_as(n3[..., :1])], -1)
         normal = torch.where(cover[..., None], n4, normal)
     return GBuffer(albedo=albedo, transmissibility=trans, normal=normal)
+
+
+def _downsample_trans_level(level: torch.Tensor, variation_epsilon: float) -> torch.Tensor:
+    """One custom transmissibility mip step (GBuffer.compute:31-52).
+
+    Input and output are (h, w, 4) with channels (avg, min, variance, leaf).
+    """
+    h, w = level.shape[0] // 2, level.shape[1] // 2
+    q = level[: h * 2, : w * 2].reshape(h, 2, w, 2, 4).permute(0, 2, 1, 3, 4)
+    a, b = q[..., 0, 0, :], q[..., 0, 1, :]
+    c, d = q[..., 1, 0, :], q[..., 1, 1, :]
+
+    average = (a[..., 0] * b[..., 0] + c[..., 0] * d[..., 0]
+               + a[..., 0] * c[..., 0] + b[..., 0] * d[..., 0]) / 4.0
+    minimum = torch.minimum(
+        torch.minimum(a[..., 1] * b[..., 1], c[..., 1] * d[..., 1]),
+        torch.minimum(a[..., 1] * c[..., 1], b[..., 1] * d[..., 1]))
+    sr_avg = torch.sqrt(torch.clamp(average, min=0.0))
+    var = ((a[..., 0] - sr_avg) ** 2 + (b[..., 0] - sr_avg) ** 2
+           + (c[..., 0] - sr_avg) ** 2 + (d[..., 0] - sr_avg) ** 2) * 0.25
+    leaf = (var < variation_epsilon).to(torch.float32)
+    return torch.stack([average, minimum, var, leaf], dim=-1)
+
+
+def _neighborhood_variance(level: torch.Tensor, variation_epsilon: float) -> torch.Tensor:
+    """3x3 variance + leaf flags per mip texel (GBuffer.compute:70-102)."""
+    x = level[..., 0]
+    h, w = x.shape
+    padded = F.pad(x[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
+    stack = torch.stack([padded[dy:dy + h, dx:dx + w]
+                         for dy in range(3) for dx in range(3)], dim=0)
+    mean = stack.mean(dim=0)
+    variance = torch.sqrt(((stack - mean) ** 2).sum(dim=0)) / 3.0
+    leaf = (variance < variation_epsilon).to(torch.float32)
+    return torch.cat([level[..., :2], variance[..., None], leaf[..., None]], dim=-1)
+
+
+def build_pyramid(gbuffer: GBuffer, levels: int = 0,
+                  variation_epsilon: float = 1e-3) -> GBufferPyramid:
+    """Custom transmissibility mips + quadtree-leaf LOD map.
+
+    Mirrors SimulationCamera.OnPostRender (SimulationCamera.cs:111-171):
+    downsample each level, run the 3x3 variance pass with epsilon halved per
+    level, then resolve per-texel quadtree leaves from the coarsest usable
+    level (mipcount - 3) down.
+    """
+    trans = gbuffer.transmissibility
+    h, w = trans.shape
+    dev = trans.device
+    if levels <= 0:
+        levels = max(1, min(h, w).bit_length() - 1)
+
+    out = [torch.stack([trans, trans, torch.zeros_like(trans), torch.ones_like(trans)],
+                       dim=-1)]
+    eps = variation_epsilon
+    for _ in range(levels):
+        eps /= 2.0
+        nxt = _neighborhood_variance(_downsample_trans_level(out[-1], eps), eps)
+        out.append(nxt)
+        if min(nxt.shape[:2]) <= 1:
+            break
+
+    # Quadtree leaves: the coarsest level whose leaf flag is set at this texel.
+    lowest_lod = max(0, len(out) - 3)
+    quad = torch.zeros((h, w), device=dev)
+    ys = (torch.arange(h, device=dev) + 0.5) / h
+    xs = (torch.arange(w, device=dev) + 0.5) / w
+    found = torch.zeros((h, w), dtype=torch.bool, device=dev)
+    for lod in range(lowest_lod, -1, -1):
+        lvl = out[lod]
+        iy = (ys * lvl.shape[0]).to(torch.int64).clamp(0, lvl.shape[0] - 1)
+        ix = (xs * lvl.shape[1]).to(torch.int64).clamp(0, lvl.shape[1] - 1)
+        leaf = lvl[iy[:, None], ix[None, :], 3] == 1.0
+        quad = torch.where(~found & leaf, float(lod), quad)
+        found |= leaf
+    return GBufferPyramid(levels=tuple(out), quadtree=quad)

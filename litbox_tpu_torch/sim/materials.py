@@ -1,5 +1,5 @@
-"""Scattering and BRDF math at a bounce point (counterpart of the JAX
-package's sim/materials.py; reference: SimulationCommon.cginc:270-379).
+"""Scattering and BRDF math (counterpart of the JAX package's
+sim/materials.py; reference: SimulationCommon.cginc:95-379).
 
 Batched over photons and branch-free: every material case is computed and
 the result selected by mask.
@@ -10,6 +10,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..core.sampling import sample_lut
 
 TWO_PI = 2.0 * math.pi
 
@@ -26,6 +28,97 @@ def perp(v: torch.Tensor) -> torch.Tensor:
 
 def unit_from_angle(theta: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1)
+
+
+def scatter_mie(mie_lut: torch.Tensor, incoming: torch.Tensor,
+                u: torch.Tensor) -> torch.Tensor:
+    """Rotate `incoming` by a Mie-LUT-sampled angle (SimulationCommon.cginc:95-101).
+
+    The reference's perpendicular here is (y, -x) (perp.x *= -1 after the yx
+    swizzle), the opposite handedness from scatter_importance_lobed.
+    """
+    s = sample_lut(mie_lut, u)
+    p = torch.stack([incoming[..., 1], -incoming[..., 0]], dim=-1)
+    return s[..., 0:1] * incoming + s[..., 1:2] * p
+
+
+def scatter_importance_lobed(teardrop_lut: torch.Tensor, origin: torch.Tensor,
+                             target: torch.Tensor, u: torch.Tensor):
+    """Teardrop lobe toward `target` (SimulationCommon.cginc:103-118).
+
+    Returns (direction (..., 2), inverse-density weight). The base direction
+    points away from the target; the teardrop pdf peaks at +-pi, folding the
+    samples back toward it.
+    """
+    d = target - origin
+    lsq = (d * d).sum(-1, keepdim=True)
+    base = -d / torch.sqrt(torch.clamp(lsq, min=1e-12))
+    s = sample_lut(teardrop_lut, u)
+    direction = base * s[..., 0:1] + perp(base) * s[..., 1:2]
+    return direction, s[..., 2]
+
+
+def scatter_importance_guided(pyramid: tuple, origin_uv: torch.Tensor,
+                              rand2: torch.Tensor):
+    """Hierarchical importance-map sampling (the intent of
+    ScatterImportanceGuided / TestImportanceMapPDF,
+    SimulationCommon.cginc:145-255; the reference's own version is dead
+    code).
+
+    A top-down categorical descent of the sum pyramid of
+    post.tracer_post.importance_pyramid: pick a coarsest-level cell in
+    proportion to its energy, then refine through each level's 2x2
+    children. Returns (uv offset from origin_uv to the sampled point,
+    inverse density = uniform pdf / sample pdf).
+    """
+    coarsest = pyramid[-1]
+    ch, cw = coarsest.shape
+    selector = rand2[..., 0]
+
+    # Coarsest level: categorical over all cells.
+    flat = coarsest.reshape(-1)
+    cdf = torch.cumsum(flat, 0)
+    total = cdf[-1] + 1e-20
+    idx = torch.searchsorted(cdf, selector * total, right=True)
+    idx = idx.clamp(0, flat.shape[0] - 1)
+    lo = torch.where(idx > 0, cdf[(idx - 1).clamp(min=0)], 0.0)
+    p_cell = flat[idx] / total
+    selector = torch.clamp((selector * total - lo) / torch.clamp(flat[idx], min=1e-20),
+                           0.0, 1.0)
+    cy, cx = idx // cw, idx % cw
+    inv_density = (1.0 / (ch * cw)) / torch.clamp(p_cell, min=1e-20)
+
+    # Refine through finer levels: a 4-way pick among the 2x2 children.
+    for level in reversed(pyramid[:-1]):
+        lh, lw = level.shape
+        cy2, cx2 = cy * 2, cx * 2
+        y0, y1 = cy2.clamp(0, lh - 1), (cy2 + 1).clamp(0, lh - 1)
+        x0, x1 = cx2.clamp(0, lw - 1), (cx2 + 1).clamp(0, lw - 1)
+        e00, e01, e10, e11 = level[y0, x0], level[y0, x1], level[y1, x0], level[y1, x1]
+        tot = e00 + e01 + e10 + e11 + 1e-20
+        p0, p1, p2, p3 = e00 / tot, e01 / tot, e10 / tot, e11 / tot
+        c0, c1, c2 = p0, p0 + p1, p0 + p1 + p2
+        sel = selector
+        k0 = sel < c0
+        k1 = ~k0 & (sel < c1)
+        k2 = ~k0 & ~k1 & (sel < c2)
+        k3 = ~(k0 | k1 | k2)
+        dx = (k1 | k3).long()
+        dy = (k2 | k3).long()
+        p_child = torch.where(k0, p0, torch.where(k1, p1, torch.where(k2, p2, p3)))
+        selector = torch.where(
+            k0, sel / torch.clamp(c0, min=1e-20),
+            torch.where(k1, (sel - c0) / torch.clamp(p1, min=1e-20),
+                        torch.where(k2, (sel - c1) / torch.clamp(p2, min=1e-20),
+                                    (sel - c2) / torch.clamp(p3, min=1e-20))))
+        cy, cx = cy2 + dy, cx2 + dx
+        inv_density = inv_density * 0.25 / torch.clamp(p_child, min=1e-20)
+
+    h0, w0 = pyramid[0].shape
+    jitter = rand2[..., 1]
+    uv = torch.stack([(cx.to(torch.float32) + jitter) / w0,
+                      (cy.to(torch.float32) + selector) / h0], -1)
+    return uv - origin_uv, inv_density
 
 
 def _hermite_weights(u: torch.Tensor):

@@ -1,14 +1,22 @@
 """Tracer orchestration (counterpart of the JAX package's sim/tracers.py;
-reference: ITracer.cs, LightTransportTracer.cs, ForwardMonteCarlo.cs).
+reference: ITracer.cs, LightTransportTracer.cs, HybridTracer.cs,
+ForwardMonteCarlo.cs, BackwardMonteCarlo.cs).
 
 Host-side objects that own device accumulators and call the trace and
-resolve functions. The forward-only strategy, `LightTransportTracer`,
-finalizes the outscatter in its HDR output; its forward integrator is the
-oracle march (`ForwardIntegrator`) or the rotated-bin transport
-(`RBTForwardIntegrator`), and `make_paired_light_transport` gives the
-'rbt-paired' engine's two views of one dual-tracer integrator. The hybrid
-strategy (`HybridTracer`, `BackwardIntegrator`) and the deterministic
-multi-bounce cascade (`dom_bounce`) are not ported.
+resolve functions. Two tracer strategies:
+
+  LightTransportTracer: forward-only, the outscatter finalized in its HDR
+                        output.
+  HybridTracer:         the forward pass (outscatter not finalized) feeds
+                        the backward per-pixel gather (`BackwardIntegrator`);
+                        the output is the backward accumulation
+                        (HybridTracer.cs:17-21, 96-101).
+
+The forward integrator is the oracle march (`ForwardIntegrator`) or the
+rotated-bin transport (`RBTForwardIntegrator`, with the deterministic
+multi-bounce cascade of sim/dom.py behind `dom_bounce`), and
+`make_paired_light_transport` gives the 'rbt-paired' engine's two views of
+one dual-tracer integrator.
 
 Every call takes an explicit `torch.Generator` on the scene's device where
 the JAX version takes a key. Per-scene static choices (which direct-light
@@ -25,6 +33,8 @@ import torch
 
 from ..core import luts
 from ..core.types import GBuffer
+from .backward import backward_bin_for_frame, backward_gather, backward_gather_rbt
+from .dom import dom_bounce_sources
 from .emission import effective_bounces
 from .oracle import to_hdr, trace_frame
 from .rbt import (analytic_light_mask, collimated_direct_raw, collimated_light_mask,
@@ -36,6 +46,12 @@ from .rbt import (analytic_light_mask, collimated_direct_raw, collimated_light_m
 def _brdf_on(device: torch.device) -> torch.Tensor:
     """The BRDF LUT on `device`, built and copied once per device."""
     return torch.from_numpy(luts.brdf_lut()).to(device)
+
+
+@functools.cache
+def _teardrop_on(device: torch.device) -> torch.Tensor:
+    """The backward gather's teardrop LUT on `device`, copied once per device."""
+    return torch.from_numpy(luts.teardrop_scattering_lut(3.0)).to(device)
 
 
 def _to_host(*tensors) -> list:
@@ -176,11 +192,18 @@ class RBTForwardIntegrator(ForwardIntegrator):
         self._group_next = {}
         self._group_frame = {}
         self._group_display = {}
-        # The deterministic multi-bounce cascade (the JAX package's
-        # sim/dom.py) is not ported: a scene that could use it raises.
+        # Deterministic multi-bounce (sim/dom.py): per-frame tracing is
+        # direct only and bounce transport is the zero-variance cascade,
+        # recomputed from the accumulated direct sources every dom_refresh
+        # frames and added at readout as a per-frame rate image (as the
+        # exact collimated field is). Engages only on normal-free medium
+        # scenes with bounces to cascade (_dom_active).
         self.dom_bounce = False
+        self.dom_refresh = 8
         self._dom_waves = 0
         self._dom_ok = None
+        self._dom_raw_rate = None
+        self._dom_it = -1
         super().__init__(finalize_outscatter, bilinear_writes)
 
     @property
@@ -221,6 +244,8 @@ class RBTForwardIntegrator(ForwardIntegrator):
         self._src = None
         self._resolved = {}
         self._phase_src = {}
+        self._dom_raw_rate = None
+        self._dom_it = -1
         self._clear_groups()
 
     def _effective_jitter_phases(self, gb) -> int:
@@ -266,15 +291,16 @@ class RBTForwardIntegrator(ForwardIntegrator):
                                      int(eff_b[active].max()) if active.any() else 0) - 1)
         self._dom_ok = None
 
-    def _check_dom(self) -> None:
+    def _dom_active(self) -> bool:
+        """Whether the cascade runs: dom_bounce on a normal-free medium
+        (no BRDF shape, no normal in the GBuffer) with bounces to cascade.
+        The normal field is read on the host once per scene change, and only
+        when dom_bounce asks."""
         if not (self.dom_bounce and not self._enable_brdf and self._dom_waves > 0):
-            return
+            return False
         if self._dom_ok is None:
             self._dom_ok = float(torch.abs(self.gbuffer.normal[..., :2]).max()) == 0.0
-        if self._dom_ok:
-            raise NotImplementedError(
-                "dom_bounce (the deterministic multi-bounce cascade of the JAX "
-                "package's sim/dom.py) is not ported")
+        return self._dom_ok
 
     def integrate(self, scene, generator: torch.Generator) -> None:
         gb = self.gbuffer
@@ -298,11 +324,22 @@ class RBTForwardIntegrator(ForwardIntegrator):
                 or self._spec_gb is not gb):
             self._specialize(scene, override)
             self._spec_key, self._spec_scene, self._spec_gb = key, scene, gb
-        self._check_dom()
+        dom_on = self._dom_active()
+        if dom_on and self.jitter_bins:
+            raise NotImplementedError(
+                "dom_bounce with the jitter-phase ladder needs a per-phase "
+                "cascade; disable one of the two")
+        if dom_on and self.n_tracers > 1:
+            raise NotImplementedError(
+                "dom_bounce needs per-tracer cascade sources; use the "
+                "single-tracer integrator for DOM scenes")
         self._src, n = rbt_trace_frame(
             self._fields, self._src, gb, scene.lights, scene.field_textures,
             self._brdf, generator, self.n_tracers * self.rays_to_emit, override,
-            max_bounces=self.max_bounces, bounce_photons=self.bounce_rays,
+            # DOM: per-frame tracing is direct only; bounce transport is the
+            # cascade, refreshed on a cadence.
+            max_bounces=1 if dom_on else self.max_bounces,
+            bounce_photons=self.bounce_rays,
             mc_direct=self._mc_direct, enable_brdf=self._enable_brdf,
             light_kinds=self._light_kinds, analytic_direct=self.analytic_direct,
             hist_direct=self._hist_direct,
@@ -316,11 +353,33 @@ class RBTForwardIntegrator(ForwardIntegrator):
         # Returns nothing: outputs resolve lazily at readout.
 
     def _with_exact(self, raw: torch.Tensor) -> torch.Tensor:
-        """Add the scene-static exact collimated wave-0 field, scaled by the
+        """Add the per-frame-rate side fields, the scene-static exact
+        collimated wave-0 field and the DOM bounce cascade, scaled by the
         accumulated iteration count."""
+        it = float(self.iterations_since_clear)
         if self._exact_raw is not None:
-            raw = raw + self._exact_raw * float(self.iterations_since_clear)
+            raw = raw + self._exact_raw * it
+        dom = self._dom_rate()
+        if dom is not None:
+            raw = raw + dom * it
         return raw
+
+    def _dom_rate(self):
+        """The cascade's bounce lightmap per accumulated frame, cached and
+        refreshed every dom_refresh frames (dom_bounce_sources is linear in
+        the accumulated direct sources, so rate * iterations is exact up to
+        the refresh lag)."""
+        if self._src is None or not self._dom_active():
+            return None
+        it = max(1, self.iterations_since_clear)
+        if self._dom_raw_rate is None or it - self._dom_it >= self.dom_refresh:
+            gb = self.gbuffer
+            dom_src = dom_bounce_sources(self._fields, gb, self._src,
+                                         n_waves=self._dom_waves)
+            self._dom_raw_rate = resolve_raw(self._fields, dom_src, gb.height,
+                                             gb.width) / float(it)
+            self._dom_it = it
+        return self._dom_raw_rate
 
     @property
     def raw_accumulation(self) -> torch.Tensor:
@@ -389,6 +448,9 @@ class RBTForwardIntegrator(ForwardIntegrator):
                  else self._group_sum[tracer])
         if self._exact_raw is not None:
             total = total + self._exact_raw
+        dom = self._dom_rate()
+        if dom is not None:
+            total = total + dom
         return total
 
     @property
@@ -418,6 +480,49 @@ class RBTForwardIntegrator(ForwardIntegrator):
                     self.finalize_outscatter)
             return self._group_display[tracer]
         return self.output_hdr_for(tracer)
+
+
+class BackwardIntegrator:
+    """Backward gather host (reference: BackwardMonteCarlo.cs).
+
+    When the forward pass runs on the RBT engine, HybridTracer shares its
+    rotated fields here (rbt_fields) and each frame evaluates the exact
+    gather integral along one direction bin for every pixel
+    (backward_gather_rbt), the deterministic-cubature replacement for the
+    reference's one lobed ray per pixel. Without fields it takes the
+    faithful per-pixel march (backward_gather)."""
+
+    def __init__(self):
+        self.integration_interval = 0.2
+        self.gbuffer: GBuffer | None = None
+        self.importance_target_uv = (0.5, 0.5)
+        self.rbt_fields = None
+        self._accum = None
+        self.frame_count = 0
+
+    def clear(self):
+        self._accum = None
+        self.frame_count = 0
+
+    def integrate(self, forward_hdr: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        gb = self.gbuffer
+        if self.rbt_fields is not None:
+            b = backward_bin_for_frame(self.frame_count, self.rbt_fields.n_bins)
+            sample = backward_gather_rbt(self.rbt_fields, gb, forward_hdr, b)
+        else:
+            interval = max(0.01, self.integration_interval * gb.height)
+            sample = backward_gather(gb, forward_hdr, _teardrop_on(gb.albedo.device),
+                                     generator, interval, self.importance_target_uv)
+        self._accum = sample if self._accum is None else self._accum + sample
+        self.frame_count += 1
+        return self.output
+
+    @property
+    def output(self) -> torch.Tensor:
+        if self._accum is None or self.frame_count == 0:
+            gb = self.gbuffer
+            return torch.zeros((gb.height, gb.width, 3), device=gb.albedo.device)
+        return self._accum / self.frame_count
 
 
 def _make_forward(engine: str, finalize_outscatter: bool) -> ForwardIntegrator:
@@ -543,3 +648,69 @@ class LightTransportTracer:
 
     def end_trace(self, importance_map=None, generator=None):
         pass
+
+
+class HybridTracer:
+    """The forward pass feeds the per-pixel backward gather (reference:
+    HybridTracer.cs).
+
+    forward_refresh_interval amortizes the forward resolve: the backward
+    gather reuses the last resolved forward HDR for K-1 frames. The
+    reference re-reads the forward texture every frame (HybridTracer.cs:17);
+    a slightly stale forward radiance converges to the same gather integral
+    but alters early-frame transients, so the default is 1 (the reference's
+    cadence) and Simulation's realtime mode takes 4."""
+
+    def __init__(self, engine: str = "rbt", forward_refresh_interval: int = 1):
+        self.forward = _make_forward(engine, finalize_outscatter=False)
+        self.backward = BackwardIntegrator()
+        self.forward_refresh_interval = max(1, forward_refresh_interval)
+        self._cached_forward_hdr = None
+
+    @property
+    def gbuffer(self):
+        return self.forward.gbuffer
+
+    @gbuffer.setter
+    def gbuffer(self, gb):
+        self.forward.gbuffer = gb
+        self.backward.gbuffer = gb
+
+    @property
+    def early_radiance(self):
+        return self.forward.output_hdr
+
+    @property
+    def tracer_output(self):
+        return self.backward.output
+
+    @property
+    def display_output(self):
+        return self.backward.output
+
+    @property
+    def forward_write_count(self):
+        return self.forward.write_count
+
+    @property
+    def forward_photon_count(self):
+        return self.forward.photon_count
+
+    def new_scene(self):
+        self.forward.clear()
+        self.backward.clear()
+        self._cached_forward_hdr = None
+
+    def begin_trace(self, scene, generator: torch.Generator):
+        self.forward.integrate(scene, generator)
+
+    def end_trace(self, importance_map=None, generator=None):
+        # The forward integrator's current fields (its jitter phase's, when
+        # the ladder is on); the oracle march has none.
+        fields = getattr(self.forward, "_fields", None)
+        if fields is not None:
+            self.backward.rbt_fields = fields
+        if (self._cached_forward_hdr is None
+                or self.backward.frame_count % self.forward_refresh_interval == 0):
+            self._cached_forward_hdr = self.forward.output_hdr
+        self.backward.integrate(self._cached_forward_hdr, generator)

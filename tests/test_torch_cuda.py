@@ -411,3 +411,87 @@ def test_resolve_on_card_matches_cpu(dev):
                           traced_phase=True)
     torch.testing.assert_close(got.cpu(), ref, atol=1e-4 * float(ref.abs().max()),
                                rtol=1e-5)
+
+
+def _fields_on(dev, d, s, w, phase, seed):
+    """Rotated fields of d bins at size s for a w x w frame, with a jitter
+    phase and a random cumulative log-transmissibility, on `dev`."""
+    ang = (torch.arange(d, dtype=torch.float32) + phase) * (2 * np.pi / d)
+    trans = _rand("cpu", seed, (d, s, s), 0.8, 1.0)
+    cum_log = torch.cumsum(torch.log(trans), -1)
+    fields = rbt.RotatedFields(
+        cos=torch.cos(ang), sin=torch.sin(ang), trans=trans, cum_log=cum_log,
+        cum_coarse=cum_log[..., 15::16].contiguous(),
+        center=torch.tensor([w / 2.0, w / 2.0]), phase=torch.tensor(float(phase)))
+    return rbt.RotatedFields(**{k: v.to(dev) for k, v in vars(fields).items()})
+
+
+# The cascade's rotations (sim/dom.py): rotate_back(traced_phase=True) of a
+# (D, S, S, 3) interaction map and _forward_rotate of a (W, W, 3) map into
+# the D bin frames, at S=128 and at the 256^2 frame's S=384.
+DOM_CASES = [(16, 128, 64, 0.0), (8, 128, 48, 0.3), (8, 384, 256, 0.0)]
+
+
+@pytest.mark.parametrize("d,s,w,phase", DOM_CASES)
+def test_dom_rotations_kernels_match_plain(dev, monkeypatch, d, s, w, phase):
+    """The cascade's rotate-back (K2 twice, K3) and forward rotation (K2
+    three times) on interleaved rows against the same compositions through
+    the plain shears on the card, 1e-5 of the maximum."""
+    from litbox_tpu_torch.sim.dom import _forward_rotate
+
+    fields = _fields_on(dev, d, s, w, phase, 41)
+    dep = _rand(dev, 42, (d, s, s, 3))
+    world = _rand(dev, 43, (w, w, 3))
+    before = (rotate.shear.launches, rotate.shear_reduce.launches)
+    back = rbt.rotate_back(fields, dep, w, w, traced_phase=True)
+    fwd = _forward_rotate(fields, world, w, w)
+    torch.cuda.synchronize()
+    assert (rotate.shear.launches - before[0],
+            rotate.shear_reduce.launches - before[1]) == (5, 1)
+    monkeypatch.setattr(rotate, "shear", rotate.shear_plain)
+    monkeypatch.setattr(rotate, "shear_reduce", rotate.shear_reduce_plain)
+    for got, ref in ((back, rbt.rotate_back(fields, dep, w, w, traced_phase=True)),
+                     (fwd, _forward_rotate(fields, world, w, w))):
+        assert got.shape == ref.shape
+        torch.testing.assert_close(got, ref, atol=1e-5 * float(ref.abs().max()), rtol=0)
+
+
+def test_dom_sources_on_card_match_cpu(dev):
+    """Two waves of dom_bounce_sources on the card (K1, K2, K3) against the
+    same call on CPU copies (the plain versions), 1e-4 of the maximum."""
+    from litbox_tpu_torch.core.types import GBuffer
+    from litbox_tpu_torch.sim.dom import dom_bounce_sources
+
+    d, s, w = 8, 128, 64
+    fields = _fields_on("cpu", d, s, w, 0.0, 44)
+    gb = GBuffer(albedo=_rand("cpu", 45, (w, w, 4)),
+                 transmissibility=_rand("cpu", 46, (w, w), 0.5, 1.0),
+                 normal=torch.zeros((w, w, 4)))
+    src = tuple(_rand("cpu", 47 + c, (d, s, s)) for c in range(3))
+    ref = dom_bounce_sources(fields, gb, src, n_waves=2)
+    got = dom_bounce_sources(
+        rbt.RotatedFields(**{k: v.to(dev) for k, v in vars(fields).items()}),
+        GBuffer(**{k: v.to(dev) for k, v in vars(gb).items()}),
+        tuple(c.to(dev) for c in src), n_waves=2)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.cpu(), r, atol=1e-4 * float(r.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("s,w,block", [(128, 64, 32), (384, 256, 128)])
+def test_backward_gather_rbt_on_card_matches_cpu(dev, s, w, block):
+    """backward_gather_rbt's float32 products on the card (TF32 off) against
+    the same call on CPU copies, 1e-4 of the maximum."""
+    from litbox_tpu_torch.core.types import GBuffer
+    from litbox_tpu_torch.sim.backward import backward_gather_rbt
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    fields = _fields_on("cpu", 8, s, w, 0.0, 50)
+    gb = GBuffer(albedo=_rand("cpu", 51, (w, w, 4)),
+                 transmissibility=_rand("cpu", 52, (w, w), 0.5, 1.0),
+                 normal=torch.zeros((w, w, 4)))
+    hdr = _rand("cpu", 53, (w, w, 3), 0.0, 2.0)
+    ref = backward_gather_rbt(fields, gb, hdr, 5, block=block)
+    got = backward_gather_rbt(
+        rbt.RotatedFields(**{k: v.to(dev) for k, v in vars(fields).items()}),
+        GBuffer(**{k: v.to(dev) for k, v in vars(gb).items()}), hdr.to(dev), 5, block=block)
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-4 * float(ref.abs().max()), rtol=0)

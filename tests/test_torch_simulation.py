@@ -369,27 +369,13 @@ def test_collimated_scene_runs():
 def _unported(option):
     s = _sim(mode=Mode.REFERENCE, rays_per_frame=512, frame_limit=1)
     s.set_scene(_scene())
-    if option == "hybrid":
-        s.strategy = Strategy.HYBRID
-        s.step()
-    elif option == "dom_bounce":
-        # A normal-free medium (a sprite) with bounces: a scene DOM would take.
-        b = SceneBuilder()
-        b.add_point_light((W / 2, W / 2), radius=1.0, bounces=2)
-        b.add_sprite((W / 2, W / 2), (W / 2, W / 2), log_density=-1.2)
-        s.set_scene(b.build(max_lights=1, max_shapes=1, device="cpu"))
-        s._validate_tracers()
-        for t in s._tracers:
-            t.forward.dom_bounce = True
-        s.step()
-    elif option == "from_checkpoint":
+    if option == "from_checkpoint":
         pipeline.AIAccelerator.from_checkpoint(s, "model_best.npz")
     else:
         pipeline.AIAccelerator(s, {}, blend_prior=np.zeros(3))
 
 
 @pytest.mark.parametrize("option,match", [
-    ("hybrid", "HYBRID"), ("dom_bounce", "dom_bounce"),
     ("from_checkpoint", "nn/train.py"), ("blend_prior", "blend_prior")])
 def test_unported_options_raise(option, match):
     with pytest.raises(NotImplementedError, match=match):
