@@ -20,6 +20,13 @@ D=128, 2,000,000 photons, 524,288 bounce chains). Prints three JSON lines:
   (engine/realtime.py on REALTIME_1080P, bf16 net of the shipped shape):
   8 frames after 9 warm ones (one flush and one calibration among them),
   then 8 single-pass displays alone.
+- "train_profile": the same for chip_smoke.py's two training recipes with
+  TF32 off, on random batches of their shapes after 2 warm steps: 3 steps
+  of TrainConfig()'s mono net (train_batch_async, batch 4 at 256^2) and 3
+  of the round-5 pair recipe (sample_pair on DeviceStages of 8 random
+  256^2 scenes, then train_batch_pair_async), each with the device time
+  of the convolution kernels (cuDNN's and the GEMMs: names with conv,
+  gemm, winograd, fft or cudnn) beside the rest.
 
 Needs one CUDA device; imports torch, numpy and litbox_tpu_torch only.
 """
@@ -37,6 +44,8 @@ import chip_smoke as smoke
 from litbox_tpu_torch.core import luts
 from litbox_tpu_torch.engine import realtime
 from litbox_tpu_torch.engine.pipeline import denoise_hdr
+from litbox_tpu_torch.nn import train
+from litbox_tpu_torch.nn.device_data import DeviceStages
 from litbox_tpu_torch.nn.unet import LitboxDenoiserNet
 from litbox_tpu_torch.sim import rbt
 from litbox_tpu_torch.sim.oracle import to_hdr
@@ -142,11 +151,56 @@ def main() -> None:
     print(json.dumps({"production_profile": [
         profile_window("8 shipped frames", production_frames),
         profile_window("8 single-pass displays", displays)]}))
+    del state, weights, weights32
+    torch.cuda.empty_cache()
+    print(json.dumps({"train_profile": train_profile()}))
+
+
+CONV_KEYS = ("conv", "gemm", "winograd", "fft", "cudnn")
+
+
+def train_profile() -> list:
+    """3 steps of each training recipe under torch.profiler, after 2 warm
+    steps, TF32 off; each window with its convolution kernels' share."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mono = train.Trainer(train.TrainConfig())
+    x = torch.rand((4, 256, 256, 1), generator=gen, device="cuda")
+    y = x * 0.9
+
+    def mono_steps(n=3):
+        for _ in range(n):
+            mono.train_batch_async(x, y)
+
+    mono_steps(2)
+    out = [profile_window("3 mono steps (TrainConfig(), batch 4, 256^2)", mono_steps)]
+    del mono
+    torch.cuda.empty_cache()
+    cfg = smoke._r5_config(smoke.TRAIN_STEPS)
+    stage = tuple(torch.rand((8, 256, 256, 3), generator=gen, device="cuda") for _ in range(3))
+    stages = DeviceStages({"Final": stage})
+    pair = train.Trainer(cfg)
+
+    def pair_steps(n=3):
+        for _ in range(n):
+            a, b, ref = stages.sample_pair("Final", gen, cfg.batch_size, cfg.crop_size, True,
+                                           identity_p=0.15)
+            pair.train_batch_pair_async(a, b, ref)
+
+    pair_steps(2)
+    out.append(profile_window("3 pair steps (round-5 recipe, 2 x 16 crops of 192^2)",
+                              pair_steps))
+    for window in out:
+        window["convolution_share_of_device"] = (window["convolution_device_ms"]
+                                                 / window["device_busy_ms"])
+    return out
 
 
 def profile_window(label: str, body, trace_path: str | None = None) -> dict:
     """torch.profiler over body(): wall time, summed kernel time (one stream,
-    so kernels do not overlap), the busy share and the top 15 kernels."""
+    so kernels do not overlap), the busy share, the convolution kernels'
+    time (names with CONV_KEYS) and the top 15 kernels."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -163,7 +217,9 @@ def profile_window(label: str, body, trace_path: str | None = None) -> dict:
     busy_us = sum(k[0] for k in kernels)
     if trace_path:
         prof.export_chrome_trace(trace_path)
+    conv_us = sum(k[0] for k in kernels if any(c in k[1].lower() for c in CONV_KEYS))
     return {"window": label, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "convolution_device_ms": conv_us / 1e3,
             "device_busy_share": busy_us / wall_us,
             "kernel_launches": sum(k[2] for k in kernels),
             "top_kernels": [dict(name=k[1][:90], device_ms=k[0] / 1e3, calls=k[2])

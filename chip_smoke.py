@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from litbox_tpu_torch/csrc (one nvcc call)
-and runs nine phases, each printed with its wall seconds:
+and, at first use, the EXR decoder (litbox_tpu_torch/native, one g++ call),
+and runs ten phases, each printed with its wall seconds:
 
 - kernels: each kernel (K1 scan, K2 shear, K3 shear_reduce, K4 fused
   rotate-and-sum) held against its plain PyTorch version at the shapes of
@@ -67,6 +68,28 @@ and runs nine phases, each printed with its wall seconds:
   on the card to 1e-5, linearity to 1e-5, the output's mass within 5% of
   the same steps with Monte-Carlo bounces). K1-K3 must be launched by
   reference and by dom, and each output must lie on the card.
+- train: denoiser training with TF32 off, in three configurations. corpus:
+  8 scenes at 256^2 (the README scene with light positions, colors and one
+  or two medium rects from a seed) through Simulation on "rbt-paired":
+  tracers A and B after 4 steps, the reference after 64, albedo and
+  transmissibility from the GBuffer, written as ZIP float EXRs into
+  _smoke/ of the checkout and read back through read_image_linear: every
+  file bit for bit, the native decoder built, used for every file and equal
+  to the Python codec; K1-K3 launched; ms to generate, write, build the
+  decoder (g++, first use) and read.
+  mono: TrainConfig()'s defaults (size 5, 32 features, crop 256, batch 4)
+  through build_curriculum and Trainer.fit for 40 steps: ms a step (host
+  clock), crops/s, TFLOP/s from unet_flop beside the float32 peak, peak
+  memory, the first and last loss; one step's gradients on the card within
+  1e-3 of their maximum of the same step on the CPU, save and load giving
+  the same eval_fn output bit for bit, AIAccelerator.from_checkpoint
+  running an on_step on a 256^2 Simulation. pair: the round-5 recipe
+  (runs/train_denoiser_r5.py SMOKE off, LITBOX_TRAIN_STEPS=40) on
+  DeviceStages of the corpus with sample_pair (identity_p 0.15) for 40
+  steps: ms a step, peak memory, no host sync in the loop (torch's sync
+  debug mode), finite losses, the learning rate at steps 0, the end of
+  warm-up and the end, the checkpoint (optimizer included) round-tripping,
+  from_checkpoint with blend "auto" running an on_step.
 - rotfused_split: the four variants of K4's cost split (V1-V4,
   litbox_tpu_torch/prof/rotfused.py, runs/prof_rotfused.py's kernels) and
   K4 itself (also with a 1.2 rad delta, LARGE_DELTA), timed at
@@ -103,31 +126,40 @@ resolve, the card's and the plain one, and the scan alone lie from float64
 (the `resolve_vs_float64` entry of its line, read by no check); by default
 that entry is null.
 
-Needs one CUDA device, nvcc and nvidia-smi; imports torch, numpy and
-litbox_tpu_torch only.
+Needs one CUDA device, nvcc, g++ with zlib and nvidia-smi; imports torch,
+numpy and litbox_tpu_torch only.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 import traceback
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from litbox_tpu_torch import convert
+from litbox_tpu_torch import convert, native
 from litbox_tpu_torch.core import luts
 from litbox_tpu_torch.core.types import REALTIME_1080P
 from litbox_tpu_torch.engine import Mode, Simulation, Strategy, pipeline, realtime
-from litbox_tpu_torch.nn.unet import LitboxDenoiserNet
+from litbox_tpu_torch.io import read_exr_rgb, read_image_linear, write_exr_rgb
+from litbox_tpu_torch.nn import train
+from litbox_tpu_torch.nn.dataset import build_curriculum
+from litbox_tpu_torch.nn.device_data import DeviceStages, stack_stage
+from litbox_tpu_torch.nn.loss import HdrLossConfig
+from litbox_tpu_torch.nn.unet import LitboxDenoiserNet, TransformConfig
 from litbox_tpu_torch.ops import attnscan, cuda_lib, rotate
 from litbox_tpu_torch.prof import microops, rotfused
 from litbox_tpu_torch.scene import SceneBuilder, rasterize
@@ -1820,6 +1852,311 @@ def hybrid_phase() -> dict:
                 launches=launches, **runs)
 
 
+# Denoiser training: a corpus made on the card, the reference's mono recipe
+# (TrainConfig()'s defaults) and the round-5 production pair recipe
+# (runs/train_denoiser_r5.py:95-128 with SMOKE off and LITBOX_TRAIN_STEPS=40).
+CORPUS_SCENES = 8
+CORPUS_NOISY_STEPS = 4
+CORPUS_REF_STEPS = 64
+TRAIN_STEPS = 40
+TRAIN_GRAD_TOL = 1e-3  # card vs CPU gradients, of the largest magnitude
+R5_LR = 1.5e-5
+CORPUS_DIR = Path(__file__).resolve().parent / "_smoke"
+
+
+def corpus_scene(i: int):
+    """The README scene with light positions and colors drawn from seed i,
+    and one or two medium rects."""
+    rng = np.random.default_rng(1000 + i)
+    b = SceneBuilder()
+    b.add_point_light(tuple(rng.uniform(48, 208, 2)), radius=4,
+                      color=tuple(rng.uniform(0.4, 1.0, 3)), intensity=2, bounces=3)
+    b.add_ellipse((160, 115), (40, 25), rotation=0.5, color=(.5, .6, 1, 1), log_density=-1.1)
+    for _ in range(int(rng.integers(1, 3))):
+        b.add_rect(tuple(rng.uniform(40, 216, 2)), tuple(rng.uniform(20, 90, 2)),
+                   rotation=float(rng.uniform(0, np.pi)),
+                   color=tuple(rng.uniform(0.3, 1.0, 3)) + (1.0,),
+                   log_density=float(rng.uniform(-2.0, -0.5)))
+    return b.build()
+
+
+def _rgb_exr(path: Path, rgb) -> np.ndarray:
+    arr = rgb.float().cpu().numpy()
+    write_exr_rgb(str(path), arr, compression="zip")
+    return arr
+
+
+def _corpus(root: Path, failures: list) -> dict:
+    """CORPUS_SCENES scenes at 256²: tracers A and B of rbt-paired after
+    CORPUS_NOISY_STEPS steps, the reference after CORPUS_REF_STEPS, albedo
+    and transmissibility from the GBuffer, written with write_exr (ZIP,
+    float) and read back through read_image_linear (the native decoder)."""
+    reset_counts()
+    written = {}
+    gen_ms = write_ms = 0.0
+    for i in range(CORPUS_SCENES):
+        t0 = time.perf_counter()
+        sim = Simulation(engine="rbt-paired", seed=i,
+                         **dict(README_SIM, frame_limit=CORPUS_REF_STEPS, measurement_interval=0))
+        sim.set_scene(corpus_scene(i))
+        for _ in range(CORPUS_NOISY_STEPS):
+            sim.step()
+        a, b = sim.tracer_a.tracer_output.clone(), sim.tracer_b.tracer_output.clone()
+        while sim.iterations_since_clear < CORPUS_REF_STEPS:
+            sim.step()
+        ref = sim.simulation_output_hdr
+        gb = sim.gbuffer
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        images = {f"Input0_Radiance_A_{i:03d}": a, f"Input0_Radiance_B_{i:03d}": b,
+                  f"Output_Reference_{i:03d}": ref, f"Albedo_{i:03d}": gb.albedo[..., :3],
+                  f"Trans_{i:03d}": gb.transmissibility[..., None].expand(-1, -1, 3)}
+        for name, img in images.items():
+            if img.device.type != "cuda" or not bool(torch.isfinite(img).all()):
+                failures.append(f"corpus: {name} is not finite on the card")
+            written[name] = _rgb_exr(root / f"{name}.exr", img)
+        gen_ms += (t1 - t0) * 1e3
+        write_ms += (time.perf_counter() - t1) * 1e3
+    launches = read_counts()
+    if missing := unlaunched(launches, RESOLVE_KERNELS):
+        failures.append(f"corpus: kernels of the path were not launched: {missing}")
+    decoded = []
+    real = native.read_exr_rgb_native
+
+    def counting(path):
+        out = real(path)
+        decoded.append(out is not None)
+        return out
+
+    t0 = time.perf_counter()
+    native.get_lib()  # the decoder's g++ build at first use, timed apart
+    build_ms = (time.perf_counter() - t0) * 1e3
+    native.read_exr_rgb_native = counting
+    t0 = time.perf_counter()
+    try:
+        back = {name: read_image_linear(str(root / f"{name}.exr")) for name in written}
+    finally:
+        native.read_exr_rgb_native = real
+    read_ms = (time.perf_counter() - t0) * 1e3
+    if len(decoded) != len(written) or not all(decoded):
+        failures.append(f"corpus: the native decoder read {sum(decoded)} of {len(written)}")
+    if not native.library_path().exists():
+        failures.append("corpus: the native decoder was not built")
+    exact = all(np.array_equal(back[k], v) for k, v in written.items())
+    codec = all(np.array_equal(back[k], read_exr_rgb(str(root / f"{k}.exr"))) for k in written)
+    if not (exact and codec):
+        failures.append(f"corpus: read back bit for bit {exact}, native = Python codec {codec}")
+    return dict(scenes=CORPUS_SCENES, size=SIM_SIZE, files=len(written),
+                noisy_steps=CORPUS_NOISY_STEPS, reference_steps=CORPUS_REF_STEPS,
+                generate_ms=gen_ms, write_ms=write_ms, decoder_build_ms=build_ms,
+                read_ms=read_ms,
+                bytes=sum((root / f"{k}.exr").stat().st_size for k in written),
+                native_reads=sum(decoded), bit_exact=exact, native_equals_python=codec,
+                launches=launches)
+
+
+def _twin_grads(trainer, device: str, inputs, targets) -> tuple[float, dict]:
+    """The loss and gradients of one step of `trainer`'s recipe from its
+    current weights on `device` (a copy of the net: the trainer's own
+    running statistics do not move)."""
+    twin = copy.copy(trainer)
+    twin.model = copy.deepcopy(trainer.model).to(device)
+    twin.device = torch.device(device)
+    loss = twin.loss(inputs.to(device), targets.to(device))
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.cpu() for k, p in twin.model.named_parameters()}
+
+
+def _losses_ok(name: str, losses, failures: list) -> None:
+    if not all(np.isfinite(x) for x in losses):
+        failures.append(f"{name}: a loss is not finite: {losses}")
+
+
+def _on_card_step(name: str, root: Path, ckpt: str, failures: list, **kw) -> dict:
+    """AIAccelerator.from_checkpoint on a 256² Simulation: one on_step."""
+    sim = Simulation(**dict(README_SIM, frame_limit=1))
+    sim.set_scene(readme_scene())
+    acc = pipeline.AIAccelerator.from_checkpoint(sim, ckpt, **kw)
+    t0 = time.perf_counter()
+    sim.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = acc.hdr_output
+    if out is None or out.device.type != "cuda" or not bool(torch.isfinite(out).all()):
+        failures.append(f"{name}: AIAccelerator.from_checkpoint gave no finite output on the card")
+    return dict(step_with_on_step_ms=ms, out_channels=acc.model.out_channels,
+                last_blend=None if acc.last_blend is None else float(acc.last_blend))
+
+
+def _mono(root: Path, failures: list) -> dict:
+    """TrainConfig()'s defaults through build_curriculum and Trainer.fit."""
+    cfg = train.TrainConfig()
+    curriculum = build_curriculum(str(root / "Output_Reference_*.exr"), str(root / "Albedo_*.exr"),
+                                  str(root / "Trans_*.exr"), str(root / "Input0_Radiance_A_*.exr"),
+                                  str(root / "Input0_Radiance_B_*.exr"), crop_size=cfg.crop_size)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = train.Trainer(cfg)
+    if trainer.device.type != "cuda" or any(p.device.type != "cuda"
+                                             for p in trainer.params.values()):
+        failures.append("mono: the Trainer is not on the card")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        log = trainer.fit(curriculum, log_every=0.0, max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    losses = [e["loss"] for e in log]
+    _losses_ok("mono", losses, failures)
+    if trainer.global_step != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
+        failures.append(f"mono: {trainer.global_step} steps, {len(losses)} losses")
+    arch = dict(unet_size=cfg.unet_size, initial_features=cfg.initial_features)
+    flop = 3 * unet_flop(arch, cfg.batch_size, cfg.crop_size, cfg.crop_size)
+    # One step's gradients on the card and on the CPU, same weights and batch.
+    batch = next(curriculum[0][1].batches(cfg.batch_size, np.random.default_rng(7)))
+    x, y = train.Trainer.select_random_channel(batch, np.random.default_rng(8), "cpu")
+    t1 = time.perf_counter()
+    card_loss, card_grads = _twin_grads(trainer, "cuda", x, y)
+    cpu_loss, cpu_grads = _twin_grads(trainer, "cpu", x, y)
+    cpu_ms = (time.perf_counter() - t1) * 1e3
+    scale = max(float(g.abs().max()) for g in cpu_grads.values())
+    grad_err = max(float((card_grads[k] - g).abs().max()) for k, g in cpu_grads.items())
+    if not grad_err <= TRAIN_GRAD_TOL * scale:
+        failures.append(f"mono: card vs CPU gradients {grad_err} of max {scale}")
+    # save -> load into a fresh Trainer: the same eval_fn output bit for bit.
+    ckpt = str(root / "mono" / "model.npz")
+    t1 = time.perf_counter()
+    trainer.save(ckpt, include_optimizer=False)
+    fresh = train.Trainer(train.load_train_config(ckpt))
+    fresh.load(ckpt)
+    io_ms = (time.perf_counter() - t1) * 1e3
+    probe = x.cuda()
+    same = torch.equal(trainer.eval_fn()(probe), fresh.eval_fn()(probe))
+    if not same:
+        failures.append("mono: eval_fn differs after save and load")
+    del fresh, card_grads, cpu_grads
+    accel = _on_card_step("mono", root, ckpt, failures)
+    return dict(config="TrainConfig()", unet_size=cfg.unet_size,
+                initial_features=cfg.initial_features, crop=cfg.crop_size,
+                batch=cfg.batch_size, steps=TRAIN_STEPS, ms_per_step=ms,
+                crops_per_second=cfg.batch_size / (ms / 1e3),
+                params=sum(p.numel() for p in trainer.params.values()),
+                flop_per_step=flop, tflop_per_s=flop / (ms / 1e3) / 1e12,
+                fp32_peak_share=flop / (ms / 1e3) / FP32_OPS_PER_S,
+                fp32_peak="67 TFLOP/s, H100 SXM float32 outside the tensor cores "
+                          "(NVIDIA data sheet)",
+                peak_memory_bytes=peak, loss_first=losses[0], loss_last=losses[-1],
+                grad_vs_cpu=dict(max_abs_err=grad_err, max_abs=scale, tol=TRAIN_GRAD_TOL,
+                                 card_loss=card_loss, cpu_loss=cpu_loss, both_ms=cpu_ms),
+                save_load_ms=io_ms, eval_equal_after_load=same, from_checkpoint=accel)
+
+
+def _r5_config(steps: int) -> "train.TrainConfig":
+    """runs/train_denoiser_r5.py:95-128 with SMOKE off and
+    LITBOX_TRAIN_STEPS=steps (no warm start: the card has no runs/)."""
+    return train.TrainConfig(
+        unet_size=4, initial_features=16, crop_size=192, learn_rate=R5_LR, epochs=1,
+        lr_decay_steps=steps, lr_min=R5_LR * 0.02, warmup_steps=min(200, steps // 20),
+        batch_size=16, global_residual=True, rgb=True, padding_mode="reflect",
+        pair_composition=True, raw_loss_weight=0.5,
+        loss=HdrLossConfig(normalize_weights=True, log_l1=0.25, rel_l2=1.0, compress="log1p"),
+        transform=TransformConfig(use_log_space=True, normalize_input=True))
+
+
+def _pair(root: Path, failures: list) -> dict:
+    """The round-5 recipe on DeviceStages from the corpus: sample_pair with
+    identity_p 0.15 and train_batch_pair_async for TRAIN_STEPS steps."""
+    cfg = _r5_config(TRAIN_STEPS)
+    ids = [f"{i:03d}" for i in range(CORPUS_SCENES)]
+    scales = [0.18 / max(float(read_image_linear(str(root / f"Output_Reference_{i}.exr")).mean()),
+                         1e-6) for i in ids]
+    stage = stack_stage(*[[str(root / f"{p}_{i}.exr") for i in ids] for p in
+                          ("Input0_Radiance_A", "Input0_Radiance_B", "Output_Reference")], scales)
+    torch.cuda.reset_peak_memory_stats()
+    dev = DeviceStages({"Final": stage})
+    trainer = train.Trainer(cfg)
+    if dev.data["Final"][0].device.type != "cuda" or trainer.device.type != "cuda":
+        failures.append("pair: the stages or the Trainer are not on the card")
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed + 1)
+    losses = []
+
+    def steps():
+        for _ in range(TRAIN_STEPS):
+            a, b, ref = dev.sample_pair("Final", gen, cfg.batch_size, cfg.crop_size, True,
+                                        identity_p=0.15)
+            losses.append(trainer.train_batch_pair_async(a, b, ref))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    syncs = host_syncs(steps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    if syncs:
+        failures.append(f"pair: the step loop made the host wait at {sorted(set(syncs))}")
+    if any(x.device.type != "cuda" for x in losses):
+        failures.append("pair: a loss is not on the card")
+    losses = [float(x) for x in losses]
+    _losses_ok("pair", losses, failures)
+    # The schedule: lr*0.1 at count 0, the peak at the end of warm-up, lr_min
+    # at the end, and the schedule's count advanced once a step.
+    lr = trainer.optimizer.lr
+    want = {0: R5_LR * 0.1, cfg.warmup_steps: R5_LR, TRAIN_STEPS: R5_LR * 0.02}
+    got = {c: float(lr(torch.tensor(c, dtype=torch.int32, device="cuda"))) for c in want}
+    count = int(trainer.optimizer.state["schedule_count"])
+    if count != TRAIN_STEPS or any(abs(got[c] - v) > 1e-6 * R5_LR for c, v in want.items()):
+        failures.append(f"pair: schedule count {count}, lr {got} against {want}")
+    arch = dict(unet_size=cfg.unet_size, initial_features=cfg.initial_features,
+                out_channels=3, global_residual=True)
+    flop = 3 * unet_flop(arch, 2 * cfg.batch_size, cfg.crop_size, cfg.crop_size)
+    ckpt = str(root / "pair" / "model.npz")
+    trainer.save(ckpt)
+    fresh = train.Trainer(train.load_train_config(ckpt))
+    fresh.load(ckpt)
+    probe = dev.data["Final"][0][:2, :cfg.crop_size, :cfg.crop_size]
+    same = (torch.equal(trainer.eval_fn()(probe), fresh.eval_fn()(probe))
+            and all(torch.equal(fresh.optimizer.state[m][k], v)
+                    for m in ("mu", "nu") for k, v in trainer.optimizer.state[m].items())
+            and int(fresh.optimizer.state["schedule_count"]) == TRAIN_STEPS)
+    if not same:
+        failures.append("pair: the checkpoint does not round-trip")
+    accel = _on_card_step("pair", root, ckpt, failures, blend="auto")
+    return dict(config="runs/train_denoiser_r5.py SMOKE off, LITBOX_TRAIN_STEPS=40",
+                unet_size=cfg.unet_size, initial_features=cfg.initial_features,
+                crop=cfg.crop_size, batch=cfg.batch_size, steps=TRAIN_STEPS, ms_per_step=ms,
+                crops_per_second=2 * cfg.batch_size / (ms / 1e3), flop_per_step=flop,
+                tflop_per_s=flop / (ms / 1e3) / 1e12,
+                fp32_peak_share=flop / (ms / 1e3) / FP32_OPS_PER_S,
+                peak_memory_bytes=peak, loss_first=losses[0], loss_last=losses[-1],
+                host_syncs_in_loop=len(syncs), lr_at=got, checkpoint_round_trip=same,
+                from_checkpoint=accel)
+
+
+def train_phase() -> dict:
+    """corpus, mono and pair, with TF32 off; the corpus and checkpoints live
+    in a directory of the checkout, removed at the end."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    failures = []
+    shutil.rmtree(CORPUS_DIR, ignore_errors=True)
+    CORPUS_DIR.mkdir(parents=True)
+    try:
+        corpus = _corpus(CORPUS_DIR, failures)
+        mono = _mono(CORPUS_DIR, failures)
+        torch.cuda.empty_cache()
+        pair = _pair(CORPUS_DIR, failures)
+    finally:
+        shutil.rmtree(CORPUS_DIR, ignore_errors=True)
+    tf32 = dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                cudnn=torch.backends.cudnn.allow_tf32)
+    if any(tf32.values()):
+        failures.append(f"train: TF32 was turned on during the phase: {tf32}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return dict(allow_tf32=tf32, corpus=corpus, mono=mono, pair=pair,
+                launches=corpus["launches"])
+
+
 def rotfused_split_phase() -> tuple[dict, dict]:
     """runs/prof_rotfused.py on the card: V1-V4 and K4 on the same images,
     at the script's (384, 640, 640) and at the frame's group shape
@@ -2131,6 +2468,12 @@ def main() -> None:
     phase("hybrid", t0)
     print(json.dumps({"hybrid": hyb}))
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    trn = train_phase()
+    phase("train", t0)
+    print(json.dumps({"train": trn}))
+    torch.cuda.empty_cache()
     _recording[0] = None
     print(json.dumps({"kernel_signatures": dict(
         checked=len(SIGNATURES["checked"]), path=len(SIGNATURES["path"]),
@@ -2169,6 +2512,7 @@ def main() -> None:
     paths = {"bench_frame": frame["launches"], "pipeline": pipe["launches"],
              "fused_resolve": fused["launches"], "production": prod["launches"],
              "simulation": sim["launches"], "hybrid": hyb["launches"],
+             "train": trn["launches"],
              "rotfused_split": split_launches,
              "microops": micro_launches}
     drives = {"rotate_planar_sum_fused": "fused_resolve",

@@ -8,7 +8,8 @@ array becomes a tensor. The port never sees a JAX type.
 
 `unet_from_flax` turns the JAX package's Flax UNet variables
 (`{"params", "batch_stats"}`, nested dicts of numpy arrays) into the
-state_dict of the port's `nn.unet.LitboxDenoiserNet`.
+state_dict of the port's `nn.unet.LitboxDenoiserNet`; `unet_to_flax` is its
+inverse.
 """
 
 from __future__ import annotations
@@ -75,7 +76,7 @@ def unet_from_flax(variables: dict, **arch) -> dict:
         for path, leaf in _flatten(variables.get(collection, {})).items():
             name = _UNET_LEAVES[(collection, path[-1])]
             mods = ["conv" if p == "Conv_0" else p for p in path[:-1]]
-            arr = np.asarray(leaf, np.float32)
+            arr = np.array(leaf, np.float32)
             if path[-1] == "kernel":
                 arr = arr.transpose(3, 2, 0, 1)
             state[".".join(mods + [name])] = torch.from_numpy(np.ascontiguousarray(arr))
@@ -91,3 +92,39 @@ def unet_from_flax(variables: dict, **arch) -> dict:
     if extra:
         raise ValueError(f"Flax variables the port's net does not have: {sorted(extra)}")
     return state
+
+
+def flax_path(key: str) -> tuple[str, str, bool]:
+    """The port's state_dict key -> (collection, Flax path joined by "/",
+    whether the leaf is a conv kernel): the inverse of unet_from_flax's
+    naming. num_batches_tracked has no Flax counterpart (collection None)."""
+    *mods, leaf = key.split(".")
+    if leaf == "num_batches_tracked":
+        return None, "", False
+    path = ["Conv_0" if m == "conv" else m for m in mods]
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stats", "/".join(path + [leaf[len("running_"):]]), False
+    kernel = leaf == "weight" and mods[-1] in ("conv", "shortcut", "conv_out")
+    name = "kernel" if kernel else ("scale" if leaf == "weight" else "bias")
+    return "params", "/".join(path + [name]), kernel
+
+
+def unet_to_flax(state: dict) -> dict:
+    """The port's state_dict of LitboxDenoiserNet -> Flax `{"params",
+    "batch_stats"}` (nested dicts of float32 numpy arrays), the inverse of
+    unet_from_flax: conv weights (O, I, kh, kw) become kernels
+    (kh, kw, I, O)."""
+    tree: dict = {"params": {}, "batch_stats": {}}
+    for key, value in state.items():
+        collection, path, kernel = flax_path(key)
+        if collection is None:
+            continue
+        arr = value.detach().cpu().float().numpy()
+        if kernel:
+            arr = arr.transpose(2, 3, 1, 0)
+        node = tree[collection]
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree

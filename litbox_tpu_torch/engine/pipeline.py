@@ -20,7 +20,8 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
-from ..nn.infer import PRODUCTION_FLOOR_GATE, PRODUCTION_K_FLOOR, blend_pair_symmetric
+from ..nn.infer import (PRODUCTION_FLOOR_GATE, PRODUCTION_K_FLOOR, blend_pair_symmetric,
+                        blend_prior_lookup)
 from ..nn.unet import LitboxDenoiserNet, TransformConfig, post_transform, pre_transform
 from ..post.tonemap import UchimuraShape, UE5Shape, tonemap_uchimura, tonemap_ue5
 from ..sim import rbt
@@ -109,15 +110,23 @@ def denoise_pair_hdr(model: LitboxDenoiserNet, model_variables,
 
 def denoise_pair_auto(model: LitboxDenoiserNet, model_variables,
                       a: torch.Tensor, b: torch.Tensor,
-                      transform: TransformConfig) -> tuple[torch.Tensor, torch.Tensor]:
+                      transform: TransformConfig,
+                      blend_prior=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The dual-tracer display of the JAX package's AIAccelerator with
-    blend='auto' (its run_auto, without the optional blend prior): denoise
-    both tracers' HDR images in one batched pass and show the k-blended pair
-    mean, k from `blend_pair_symmetric` with the shipped floor and gate.
+    blend='auto' (its run_auto): denoise both tracers' HDR images in one
+    batched pass and show the k-blended pair mean, k from
+    `blend_pair_symmetric` with the shipped floor and gate, raised to the
+    prior's k (`blend_prior_lookup`) when a blend_prior table is given.
     Returns (display (H, W, 3), k as a 0-d tensor on the images' device)."""
     out_a, out_b = denoise_pair_hdr(model, model_variables, a, b, transform)
-    return blend_pair_symmetric(out_a, out_b, a, b, k_floor=PRODUCTION_K_FLOOR,
-                                floor_gate=PRODUCTION_FLOOR_GATE)
+    disp, k = blend_pair_symmetric(out_a, out_b, a, b, k_floor=PRODUCTION_K_FLOOR,
+                                   floor_gate=PRODUCTION_FLOOR_GATE)
+    if blend_prior is not None:
+        k = torch.maximum(k, blend_prior_lookup(blend_prior, a, b))
+        x = (a + b) * 0.5
+        dbar = ((out_a - a) + (out_b - b)) * 0.5
+        disp = x + k * dbar
+    return disp, k
 
 
 class AIAccelerator:
@@ -131,8 +140,9 @@ class AIAccelerator:
     in one batched pass and shows their k-blended mean (denoise_pair_auto,
     k from the pair with the shipped floor and gate; `last_blend` holds k);
     a float blend runs the net on the pair mean with that residual blend.
-    The blend prior and loading a training checkpoint need the JAX
-    package's nn/train.py and blend_prior_lookup, which are not ported.
+    blend_prior, a (n, 2) table from nn.infer.fit_blend_prior, raises the
+    auto k to the prior's (a diagnostic the JAX package measured losing on
+    held-out tiers; never loaded on its own, only given explicitly).
     """
 
     def __init__(self, simulation, model_variables: Mapping[str, torch.Tensor],
@@ -141,14 +151,13 @@ class AIAccelerator:
                  tonemap: str = "ue5", blend: float | str = 1.0,
                  blend_prior=None, out_channels: int = 1,
                  padding_mode: str = "reflect", global_residual: bool = False):
-        if blend_prior is not None:
-            raise NotImplementedError(
-                "blend_prior (nn.infer.blend_prior_lookup) is not ported")
         self.simulation = simulation
         self.transform = transform or TransformConfig()
         self.tonemap = tonemap
         self.blend = blend
-        self.blend_prior = None
+        self.blend_prior = (None if blend_prior is None else
+                            torch.as_tensor(blend_prior, dtype=torch.float32,
+                                            device=simulation.device))
         with torch.device("meta"):
             self.model = LitboxDenoiserNet(unet_size=unet_size,
                                            initial_features=initial_features,
@@ -167,7 +176,8 @@ class AIAccelerator:
             self.hdr_output, self.last_blend = denoise_pair_auto(
                 self.model, self.model_variables,
                 self.simulation.tracer_a.tracer_output,
-                self.simulation.tracer_b.tracer_output, self.transform)
+                self.simulation.tracer_b.tracer_output, self.transform,
+                blend_prior=self.blend_prior)
         else:
             self.hdr_output = denoise_hdr(
                 self.model, self.model_variables,
@@ -180,11 +190,22 @@ class AIAccelerator:
 
     @classmethod
     def from_checkpoint(cls, simulation, ckpt_path: str, **kwargs):
-        """Build from a training checkpoint: needs the JAX package's
-        nn/train.py (Trainer, load_train_config), which is not ported."""
-        raise NotImplementedError(
-            "AIAccelerator.from_checkpoint needs nn/train.py, which is not ported; "
-            "carry the weights with convert.unet_from_flax instead")
+        """Build an AIAccelerator whose architecture and transform match the
+        checkpoint's saved TrainConfig (nn.train.load_train_config), from a
+        checkpoint of either package. It never loads a `*_blend_prior.npy`
+        beside the weights: pass blend_prior=... explicitly."""
+        from ..nn.train import Trainer, load_train_config
+
+        cfg = load_train_config(ckpt_path)
+        trainer = Trainer(cfg, device=simulation.device)
+        trainer.load(ckpt_path)
+        return cls(simulation, trainer.model.state_dict(),
+                   unet_size=cfg.unet_size,
+                   initial_features=cfg.initial_features,
+                   transform=cfg.transform,
+                   out_channels=3 if cfg.rgb else 1,
+                   padding_mode=cfg.padding_mode,
+                   global_residual=cfg.global_residual, **kwargs)
 
     def detach(self):
         if self._on_step in self.simulation.on_step:

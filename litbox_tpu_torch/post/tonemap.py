@@ -1,5 +1,5 @@
 """Tone mapping curves (counterpart of the JAX package's post/tonemap.py;
-reference: Assets/Shaders/ToneMapping.cginc). The inverses are not ported."""
+reference: Assets/Shaders/ToneMapping.cginc), with the UE5 curve's inverse."""
 
 from __future__ import annotations
 
@@ -26,6 +26,29 @@ def tonemap_ue5(x: torch.Tensor, shape: UE5Shape = UE5Shape()) -> torch.Tensor:
     """smoothstep(black, white, log10(x) + exposure) (ToneMapping.cginc:14-16)."""
     return _smoothstep(shape.black_point, shape.white_point,
                        torch.log10(torch.clamp(x, min=1e-30)) + shape.exposure)
+
+
+def smoothstep_inverse(y: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of t*t*(3-2t) on [0, 1]:
+    t = 1/2 - sin(asin(1 - 2y) / 3)."""
+    y = torch.clamp(y, 0.0, 1.0)
+    return 0.5 - torch.sin(torch.asin(1.0 - 2.0 * y) / 3.0)
+
+
+# The reference's dataset/golden PNG writer tone-maps with THESE constants
+# (TextureExtensions.SaveTexturePNG:311-350: UE5 curve, white=2, black=-3,
+# per-scene auto exposure) into an sRGB target. The unknown per-scene
+# exposure is a pure 10^-e scale on the recovered radiance.
+GOLDEN_PNG_SHAPE = UE5Shape(exposure=0.0, white_point=2.0, black_point=-3.0)
+
+
+def tonemap_ue5_inverse(y: torch.Tensor, shape: UE5Shape = GOLDEN_PNG_SHAPE) -> torch.Tensor:
+    """Invert tonemap_ue5: y in [0, 1] -> linear radiance. Exact where the
+    curve is invertible; y = 0 or 1 pins to 10^black, 10^white."""
+    t = smoothstep_inverse(y)
+    logx = (shape.black_point
+            + t * (shape.white_point - shape.black_point) - shape.exposure)
+    return 10.0 ** logx
 
 
 @dataclasses.dataclass(frozen=True)

@@ -495,3 +495,102 @@ def test_backward_gather_rbt_on_card_matches_cpu(dev, s, w, block):
         rbt.RotatedFields(**{k: v.to(dev) for k, v in vars(fields).items()}),
         GBuffer(**{k: v.to(dev) for k, v in vars(gb).items()}), hdr.to(dev), 5, block=block)
     torch.testing.assert_close(got.cpu(), ref, atol=1e-4 * float(ref.abs().max()), rtol=0)
+
+
+def _train_cfg(**kw):
+    from litbox_tpu_torch.nn.loss import HdrLossConfig
+    from litbox_tpu_torch.nn.train import TrainConfig
+    from litbox_tpu_torch.nn.unet import TransformConfig
+
+    # runs/train_denoiser_r5.py's recipe at a small width
+    return TrainConfig(unet_size=2, initial_features=8, crop_size=32, batch_size=4,
+                       rgb=True, global_residual=True, pair_composition=True,
+                       lr_decay_steps=20, warmup_steps=2, lr_min=1e-6,
+                       loss=HdrLossConfig(normalize_weights=True, log_l1=0.25, rel_l2=1.0,
+                                          compress="log1p"),
+                       transform=TransformConfig(use_log_space=True, normalize_input=True),
+                       **kw)
+
+
+def _stage(seed, n=3, h=48, w=40):
+    rng = np.random.default_rng(seed)
+    ref = rng.exponential(0.5, (n, h, w, 3)).astype(np.float32)
+    a = (ref * rng.exponential(1.0, ref.shape)).astype(np.float32)
+    b = (ref * rng.exponential(1.0, ref.shape)).astype(np.float32)
+    a[rng.uniform(size=a.shape) < 0.1] = 0.0
+    return a, b, ref
+
+
+def test_sample_batch_pair_on_card_matches_cpu(dev):
+    """The samplers on the card from the same draws as on the CPU: the
+    same batches bit for bit."""
+    from litbox_tpu_torch.nn import device_data as dd
+
+    data = _stage(60)
+    d = dd.draw(torch.Generator().manual_seed(1), data[0].shape, 32, 16, 0.15)
+    d_card = dd.Draws(**{k: v.to(dev) for k, v in vars(d).items()})
+    cpu = [torch.from_numpy(x) for x in data]
+    card = [x.to(dev) for x in cpu]
+    for rgb in (True, False):
+        for fn in (dd.sample_batch_pair_from, dd.sample_batch_from):
+            for g, r in zip(fn(*card, d_card, 16, rgb), fn(*cpu, d, 16, rgb)):
+                assert g.device.type == "cuda"
+                assert torch.equal(g.cpu(), r)
+
+
+def test_trainer_step_on_card_matches_cpu(dev, monkeypatch):
+    """One pair step of the same weights and batch on the card (float32
+    convolutions: TF32 off) and on the CPU: the loss, every gradient and
+    the new running statistics within 1e-3 of the largest magnitude of
+    their tree (cuDNN and the CPU sum in other orders), then the updated
+    parameters likewise. conv_out starts from small random weights: at
+    the identity init the pair's corrections are rounding noise, and the
+    display's k, their ratio, would differ between any two devices."""
+    from litbox_tpu_torch.nn.train import Trainer
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = _train_cfg()
+    card, cpu = Trainer(cfg), Trainer(cfg, device="cpu")
+    assert card.device.type == "cuda"
+    with torch.no_grad():
+        w = card.model.conv_out.weight
+        w.copy_(_rand(dev, 63, tuple(w.shape), -0.01, 0.01))
+    cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    a, b, ref = (torch.from_numpy(x[:, :32, :32]) for x in _stage(61))
+    lc = card.train_batch_pair_async(a.to(dev), b.to(dev), ref.to(dev))
+    lh = cpu.train_batch_pair_async(a, b, ref)
+    assert abs(float(lc) - float(lh)) <= 1e-3 * abs(float(lh))
+
+    def check(got: dict, want: dict):
+        scale = max(float(v.abs().max()) for v in want.values())
+        for k, v in want.items():
+            err = float((got[k].cpu() - v).abs().max())
+            assert err <= 1e-3 * scale, (k, err, scale)
+
+    check({k: p.grad for k, p in card.params.items()}, {k: p.grad for k, p in cpu.params.items()})
+    check(card.model.state_dict(), cpu.model.state_dict())
+
+
+def test_pair_training_is_sync_free(dev, monkeypatch):
+    """Sampling on the card and train_batch_pair_async never make the host
+    wait (torch's sync debug mode raises on a sync), and the losses are
+    finite when read afterwards."""
+    from litbox_tpu_torch.nn.device_data import DeviceStages
+    from litbox_tpu_torch.nn.train import Trainer
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    stages = DeviceStages({"Final": _stage(62)})
+    tr = Trainer(_train_cfg())
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tr.train_batch_pair_async(*stages.sample_pair("Final", gen, 4, 32, True, 0.15))
+    torch.cuda.synchronize()
+    losses = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            losses.append(tr.train_batch_pair_async(
+                *stages.sample_pair("Final", gen, 4, 32, True, identity_p=0.15)))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(bool(torch.isfinite(x)) for x in losses)
+    assert int(tr.optimizer.state["count"]) == 6 == tr.global_step

@@ -366,22 +366,6 @@ def test_collimated_scene_runs():
     assert float(out.sum()) > float(base.run().sum())
 
 
-def _unported(option):
-    s = _sim(mode=Mode.REFERENCE, rays_per_frame=512, frame_limit=1)
-    s.set_scene(_scene())
-    if option == "from_checkpoint":
-        pipeline.AIAccelerator.from_checkpoint(s, "model_best.npz")
-    else:
-        pipeline.AIAccelerator(s, {}, blend_prior=np.zeros(3))
-
-
-@pytest.mark.parametrize("option,match", [
-    ("from_checkpoint", "nn/train.py"), ("blend_prior", "blend_prior")])
-def test_unported_options_raise(option, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _unported(option)
-
-
 def test_cpu_scene_refused_on_another_device():
     """A Simulation on another device refuses a CPU scene at set_scene,
     before any work."""
