@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from litbox_tpu_torch/csrc (one nvcc call)
 and, at first use, the EXR decoder (litbox_tpu_torch/native, one g++ call),
-and runs ten phases, each printed with its wall seconds:
+and runs twelve phases, each printed with its wall seconds:
 
 - kernels: each kernel (K1 scan, K2 shear, K3 shear_reduce, K4 fused
   rotate-and-sum) held against its plain PyTorch version at the shapes of
@@ -12,7 +12,8 @@ and runs ten phases, each printed with its wall seconds:
   profile's per-frame resolve and (K1-K3) of the simulation phase at 256^2
   (the exact collimated field's one bin at S=1024 and 384, K2 and K3 on
   interleaved rows; the paired engine's two-tracer scan and the realtime
-  configuration's group of 16 at S=384), each timed (CUDA events, median of 7) beside
+  configuration's group of 16 at S=384; the demo phase's full resolve at
+  S=256), each timed (CUDA events, median of 7) beside
   the bound and a library yardstick where one exists; K2 and K3 at the
   per-frame resolve's shape from a flushed L2, K3 held equal to the
   in-order sum of K2's outputs bit for bit, and K4 also with LARGE_DELTA,
@@ -90,6 +91,31 @@ and runs ten phases, each printed with its wall seconds:
   debug mode), finite losses, the learning rate at steps 0, the end of
   warm-up and the end, the checkpoint (optimizer included) round-tripping,
   from_checkpoint with blend "auto" running an on_step.
+- data: data.TrainingFactory with runs/gen_dataset_r2.py's recipe (:17-31:
+  256², input profiles (5, 8192), (1, 65536), (1, 262144), convergence at
+  262,144 photons to 6e-4 within 250 frames, seed 1042, MC direct inputs,
+  jittered bins, 512² substrates) cut to 4 of its 160 scenes, into
+  _smoke/data/ (removed at the end): ms a scene split into set-up
+  (substrates timed apart), input profiles and the convergence loop, frames
+  to convergence, photons/s of the loops, host syncs over one convergence
+  loop (the first kept sample's again, under torch's sync debug mode), the
+  discarded ids. Gates: a scene kept, each kept sample complete with 3 profiles,
+  every EXR finite and read by the native decoder, K1-K3 launched, a
+  resumed factory returning the same ids and writing no file (sizes and
+  mtimes), consolidate_sessions numbering the kept samples 0..n-1,
+  nn.dataset.build_curriculum loading the session (Final on
+  Input2_Radiance_A/B) into batches of (n, 256, 256, 3), and one of the
+  run's substrates made on the card within SUBSTRATE_TOL of the CPU's (at
+  most SUBSTRATE_FLIPS texels whose shape test flips).
+- demo: demo.abduction's render_sequence (8 frames, 128², 16,384 photons,
+  3 sim frames) and play_sequence (the canonical 20 inputs, 128², 8,192
+  photons, 2 sim frames) at their defaults: ms a frame, the final score;
+  every frame finite in [0, 1], the HDR and the composite on the card until
+  the PNG copy, play_sequence's state equal to the same script on an
+  AbductionGame alone, K1-K3 launched (as in the JAX package, only each
+  sequence's first frame is simulated: ROADMAP C7). Then diag.picker on
+  the README quickstart at 256² (4 steps) with the simulation phase's
+  AIAccelerator: ms a view, all 12 views finite, dump_all writing 12 PNGs.
 - rotfused_split: the four variants of K4's cost split (V1-V4,
   litbox_tpu_torch/prof/rotfused.py, runs/prof_rotfused.py's kernels) and
   K4 itself (also with a 1.2 rad delta, LARGE_DELTA), timed at
@@ -115,7 +141,7 @@ Every kernel counter is set to 0 just before a path is driven and read just
 after; a kernel of the path that was not launched, or any failed check,
 raises, so the exit code is not 0. Each K1-K3 launch's shape and static
 arguments are recorded, in the kernels phase where the kernel is held
-against its plain version and on the paths from frame to hybrid; a
+against its plain version and on the paths from frame to demo; a
 path launch at a shape the kernels phase did not hold raises too (the
 `kernel_signatures` line). The lines before the last carry one JSON
 line per phase, the kernels line and the card's name and power limit; the
@@ -152,7 +178,11 @@ import torch.nn.functional as F
 
 from litbox_tpu_torch import convert, native
 from litbox_tpu_torch.core import luts
-from litbox_tpu_torch.core.types import REALTIME_1080P
+from litbox_tpu_torch.core.types import REALTIME_1080P, SimulationProfile
+from litbox_tpu_torch.data import factory as data_factory
+from litbox_tpu_torch.data import sessions, substrate
+from litbox_tpu_torch.demo import abduction, game
+from litbox_tpu_torch.diag import picker
 from litbox_tpu_torch.engine import Mode, Simulation, Strategy, pipeline, realtime
 from litbox_tpu_torch.io import read_exr_rgb, read_image_linear, write_exr_rgb
 from litbox_tpu_torch.nn import train
@@ -617,6 +647,8 @@ def kernels_phase() -> dict:
     # (src_offset D) and the fused_resolve phase's resolve of 1/4 of the
     # bins (3*32 images). The hybrid phase's cascade at S=384: K2 and K3 on
     # the D bins' interleaved rows (rotate_back and the forward rotation).
+    # The demo phase's Simulation at 128²: the full resolve at S=256 (rows
+    # 64..192).
     # main() raises if a path launches K1-K3 at a shape not held here.
     results = {
         "attenuation_scan_rows": (check_scan(gen, d, 384, 1, 0, 1),
@@ -628,7 +660,8 @@ def kernels_phase() -> dict:
                                   check_scan(gen, 1, 1024, 1, 0, 1),
                                   check_scan(gen, 1, 384, 1, 0, 1),
                                   check_scan(gen, d, 384, 1, 0, 2),
-                                  check_scan(gen, d, 384, 16, 3, 1)),
+                                  check_scan(gen, d, 384, 16, 3, 1),
+                                  check_scan(gen, d, 256, 1, 0, 1)),
         "shear": (check_shear(gen, 3 * d, 384), check_shear(gen, 3 * d, 640),
                   check_shear(gen, 3 * d // 16, 640, cold=True),
                   check_shear_interleaved(gen, 1024, 1, 3),
@@ -638,7 +671,8 @@ def kernels_phase() -> dict:
                   check_shear(gen, 3 * d // 16, 384, cold=True),
                   check_shear(gen, 3 * d // 4, 640),
                   check_shear_interleaved(gen, 384, 1, 3, n=d),
-                  check_shear_interleaved(gen, 384, 3, 1, n=d)),
+                  check_shear_interleaved(gen, 384, 3, 1, n=d),
+                  check_shear(gen, 3 * d, 256)),
         "shear_reduce": (check_shear_reduce(gen, 3 * d, 384, 64, 320),
                          check_shear_reduce(gen, 3 * d, 640, 128, 512),
                          check_shear_reduce(gen, 3 * d // 16, 640, 128, 512, cold=True),
@@ -646,7 +680,8 @@ def kernels_phase() -> dict:
                          check_shear_reduce_interleaved(gen, 384, 64, 320),
                          check_shear_reduce(gen, 3 * d // 16, 384, 64, 320, cold=True),
                          check_shear_reduce(gen, 3 * d // 4, 640, 128, 512),
-                         check_shear_reduce_interleaved(gen, 384, 64, 320, n=d)),
+                         check_shear_reduce_interleaved(gen, 384, 64, 320, n=d),
+                         check_shear_reduce(gen, 3 * d, 256, 64, 192)),
         "rotate_planar_sum_fused": (
             check_rotfused(gen, 384, 1, 0.0), check_rotfused(gen, 640, 1, 0.0),
             check_rotfused(gen, 384, 1, jitter), check_rotfused(gen, 640, 1, jitter),
@@ -1886,6 +1921,22 @@ def _rgb_exr(path: Path, rgb) -> np.ndarray:
     return arr
 
 
+def _native_reads(paths) -> tuple[list, int]:
+    """read_image_linear of each path, and how many the native decoder read."""
+    real, decoded = native.read_exr_rgb_native, []
+
+    def counting(path):
+        out = real(path)
+        decoded.append(out is not None)
+        return out
+
+    native.read_exr_rgb_native = counting
+    try:
+        return [read_image_linear(str(p)) for p in paths], sum(decoded)
+    finally:
+        native.read_exr_rgb_native = real
+
+
 def _corpus(root: Path, failures: list) -> dict:
     """CORPUS_SCENES scenes at 256²: tracers A and B of rbt-paired after
     CORPUS_NOISY_STEPS steps, the reference after CORPUS_REF_STEPS, albedo
@@ -1920,26 +1971,15 @@ def _corpus(root: Path, failures: list) -> dict:
     launches = read_counts()
     if missing := unlaunched(launches, RESOLVE_KERNELS):
         failures.append(f"corpus: kernels of the path were not launched: {missing}")
-    decoded = []
-    real = native.read_exr_rgb_native
-
-    def counting(path):
-        out = real(path)
-        decoded.append(out is not None)
-        return out
-
     t0 = time.perf_counter()
     native.get_lib()  # the decoder's g++ build at first use, timed apart
     build_ms = (time.perf_counter() - t0) * 1e3
-    native.read_exr_rgb_native = counting
     t0 = time.perf_counter()
-    try:
-        back = {name: read_image_linear(str(root / f"{name}.exr")) for name in written}
-    finally:
-        native.read_exr_rgb_native = real
+    decoded, native_reads = _native_reads([root / f"{name}.exr" for name in written])
+    back = dict(zip(written, decoded))
     read_ms = (time.perf_counter() - t0) * 1e3
-    if len(decoded) != len(written) or not all(decoded):
-        failures.append(f"corpus: the native decoder read {sum(decoded)} of {len(written)}")
+    if native_reads != len(written):
+        failures.append(f"corpus: the native decoder read {native_reads} of {len(written)}")
     if not native.library_path().exists():
         failures.append("corpus: the native decoder was not built")
     exact = all(np.array_equal(back[k], v) for k, v in written.items())
@@ -1951,7 +1991,7 @@ def _corpus(root: Path, failures: list) -> dict:
                 generate_ms=gen_ms, write_ms=write_ms, decoder_build_ms=build_ms,
                 read_ms=read_ms,
                 bytes=sum((root / f"{k}.exr").stat().st_size for k in written),
-                native_reads=sum(decoded), bit_exact=exact, native_equals_python=codec,
+                native_reads=native_reads, bit_exact=exact, native_equals_python=codec,
                 launches=launches)
 
 
@@ -2155,6 +2195,345 @@ def train_phase() -> dict:
         raise AssertionError("; ".join(failures))
     return dict(allow_tf32=tf32, corpus=corpus, mono=mono, pair=pair,
                 launches=corpus["launches"])
+
+
+# Dataset generation (the data phase): runs/gen_dataset_r2.py's recipe
+# (:17-31), which made the shipped denoiser's training set, cut to 4 of its
+# 160 scenes; then the Abduction demo and the buffer picker (the demo phase).
+DATA_DIR = CORPUS_DIR / "data"
+DATA_SAMPLES = 4
+DATA_RECIPE = dict(
+    samples_to_generate=DATA_SAMPLES, width=256, height=256,
+    input_profiles=(SimulationProfile(5, 8192, 0.1, 4), SimulationProfile(1, 65536, 0.1, 4),
+                    SimulationProfile(1, 262144, 0.1, 4)),
+    convergence_profile=SimulationProfile(-1, 262144, 0.01, 4), convergence_threshold=6e-4,
+    max_convergence_frames=250, seed=1042, mc_direct_inputs=True, jitter_bins=True,
+    substrate_texture_size=512)
+# A substrate on the card against the same params on the CPU: elementwise
+# float32 in one order, pow and sqrt within ulps; a texel whose shape test
+# flips (its local coordinate within an ulp of an edge) is allowed up to
+# SUBSTRATE_FLIPS times and excluded with its edge-blur neighbourhood.
+SUBSTRATE_TOL = 1e-5
+SUBSTRATE_FLIPS = 2
+
+
+class _FactoryClock:
+    """Spans of TrainingFactory.generate on the host clock, each ended by a
+    synchronize: the substrates (data.factory.generate_random), each
+    load_profile to the next mark (an input profile's frames and writes, or
+    the convergence loop and its writes) and each scene's log line, with the
+    convergence loop's frames read there."""
+
+    def __init__(self):
+        self.substrate_ms, self.marks, self._sim = [], [], None
+
+    def mark(self, label: str) -> None:
+        torch.cuda.synchronize()
+        frames = None
+        if label == "end" and self._sim is not None:
+            frames, self._sim = self._sim.iterations_since_clear, None
+        self.marks.append((label, time.perf_counter(), frames))
+
+    @contextlib.contextmanager
+    def installed(self):
+        clock, real = self, data_factory.generate_random
+
+        def substrates(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            clock.substrate_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        class Timed(Simulation):
+            def load_profile(self, profile):
+                converging = profile.frame_limit == -1
+                clock.mark("convergence" if converging else "input")
+                if converging:
+                    clock._sim = self
+                super().load_profile(profile)
+
+        saved = data_factory.Simulation
+        data_factory.generate_random, data_factory.Simulation = substrates, Timed
+        try:
+            yield
+        finally:
+            data_factory.generate_random, data_factory.Simulation = real, saved
+
+    def scenes(self) -> list:
+        """Per scene: set-up (substrates, builder, Simulation), each input
+        profile, the convergence loop, and its frames."""
+        out, start, spans = [], self.marks[0][1], {}
+        for i, (label, t, frames) in enumerate(self.marks[1:], 1):
+            if label == "end":
+                out.append(dict(spans, frames=frames, total_ms=(t - start) * 1e3))
+                start, spans = t, {}
+                continue
+            spans.setdefault("setup_ms", (t - start) * 1e3)
+            spans.setdefault(f"{label}_ms", []).append((self.marks[i + 1][1] - t) * 1e3)
+        return out
+
+
+def _files(path: Path) -> dict:
+    return {p.name: (p.stat().st_size, p.stat().st_mtime_ns) for p in sorted(path.iterdir())}
+
+
+def _convergence_syncs(desc: dict, sample_id: int) -> dict:
+    """Host syncs over one convergence loop of the recipe, as the factory
+    runs it (the integrators' flags, the profile, the threshold and a
+    measure every 100 frames), on a sample's scene."""
+    w, h = DATA_RECIPE["width"], DATA_RECIPE["height"]
+    scene, _ = data_factory.build_scene_from_description(
+        desc, w, h, substrate_texture_size=DATA_RECIPE["substrate_texture_size"])
+    sim = Simulation(width=w, height=h, mode=Mode.REFERENCE, seed=sample_id)
+    sim.set_scene(scene)
+    sim._validate_tracers()
+    profile = DATA_RECIPE["convergence_profile"]
+    for t in sim._tracers:
+        t.forward.analytic_direct, t.forward.jitter_bins = True, True
+        t.forward.bounce_rays = profile.rays_per_frame // 4
+    sim.load_profile(profile)
+    sim.convergence_threshold, sim.measurement_interval = DATA_RECIPE["convergence_threshold"], 100
+
+    def loop():
+        while sim.is_running and sim.iterations_since_clear < DATA_RECIPE["max_convergence_frames"]:
+            sim.step()
+
+    sites = host_syncs(loop)
+    frames = sim.iterations_since_clear
+    return dict(sample=sample_id, frames=frames, count=len(sites), per_frame=len(sites) / frames,
+                sites=sorted(set(sites)))
+
+
+def _substrate_on_card(seed: int, failures: list) -> dict:
+    """One of the run's substrates (version 2, 512²) made on the card and on
+    the CPU from the same params."""
+    size = DATA_RECIPE["substrate_texture_size"]
+    p = substrate.generate_random_params(seed, 2, size)
+    card, card_ms = _read_ms(lambda: substrate.generate_texture(p, "cuda"))
+    t0 = time.perf_counter()
+    cpu = substrate.generate_texture(p, "cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    _, _, xy = substrate._grid(size, "cpu")
+    flips = (substrate._inside(p, xy.cuda()).cpu() != substrate._inside(p, xy))
+    keep = torch.ones((size, size), dtype=torch.bool)
+    ys, xs = torch.meshgrid(torch.arange(size), torch.arange(size), indexing="ij")
+    for fy, fx in torch.nonzero(flips).tolist():
+        keep &= torch.hypot((ys - fy).float(), (xs - fx).float()) > p.edge_blur + 2
+    err = float((card.cpu() - cpu)[keep].abs().max())
+    if int(flips.sum()) > SUBSTRATE_FLIPS or not err <= SUBSTRATE_TOL:
+        failures.append(f"substrate {seed}: card vs CPU {err} (tol {SUBSTRATE_TOL}), "
+                        f"{int(flips.sum())} shape flips (at most {SUBSTRATE_FLIPS})")
+    return dict(seed=seed, version=2, size=size, max_abs_err=err, tol=SUBSTRATE_TOL,
+                shape_flips=int(flips.sum()), card_ms=card_ms, cpu_ms=cpu_ms)
+
+
+def data_phase() -> dict:
+    """TrainingFactory with DATA_RECIPE into _smoke/data/ (removed at the
+    end): the files of each kept sample, a resumed factory that writes
+    nothing, consolidate_sessions, build_curriculum on the session, and one
+    substrate on the card against the CPU."""
+    failures = []
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    DATA_DIR.mkdir(parents=True)
+    clock, logs = _FactoryClock(), []
+
+    def log(message):
+        logs.append(message)
+        if message.startswith(("Completed", "Discarding")):
+            clock.mark("end")
+
+    try:
+        fac = data_factory.TrainingFactory(output_folder=str(DATA_DIR), **DATA_RECIPE)
+        reset_counts()
+        with clock.installed():
+            clock.mark("start")
+            kept = fac.generate(log=log)
+        launches = read_counts()
+        session = Path(fac.dataset_path)
+        discarded = sorted(set(range(DATA_SAMPLES)) - set(kept))
+        if not kept:
+            raise AssertionError(f"data: every scene was discarded: {logs}")
+        n_inputs = len(DATA_RECIPE["input_profiles"])
+        if incomplete := [i for i in kept if not sessions.is_complete(str(session), i, n_inputs)]:
+            failures.append(f"data: samples {incomplete} are incomplete")
+        if missing := unlaunched(launches, RESOLVE_KERNELS):
+            failures.append(f"data: kernels of the path were not launched: {missing}")
+        exrs = sorted(session.glob("*.exr"))
+        images, native_reads = _native_reads(exrs)
+        if native_reads != len(exrs) or not all(np.isfinite(x).all() for x in images):
+            failures.append(f"data: {native_reads} of {len(exrs)} EXRs read natively, "
+                            "or one is not finite")
+
+        before = _files(session)
+        t0 = time.perf_counter()
+        resumed = data_factory.TrainingFactory(
+            output_folder=str(DATA_DIR), continue_previous_session=True, **DATA_RECIPE)
+        again = resumed.generate(log=lambda _: None)
+        resume_ms = (time.perf_counter() - t0) * 1e3
+        if again != kept or _files(session) != before or resumed.dataset_path != str(session):
+            failures.append(f"data: the resumed factory returned {again} (kept {kept}) or "
+                            "wrote a file")
+
+        dest = Path(sessions.consolidate_sessions(str(DATA_DIR), n_input_profiles=n_inputs))
+        consolidated = sessions.list_sample_ids(str(dest))
+        if consolidated != list(range(len(kept))):
+            failures.append(f"data: consolidated ids {consolidated} for {len(kept)} kept")
+
+        stages = build_curriculum(*(str(session / g) for g in (
+            "Output_Reference_*.exr", "Albedo_*.png", "Transmissibility_*.exr",
+            "Input2_Radiance_A_*.exr", "Input2_Radiance_B_*.exr")),
+            crop_size=DATA_RECIPE["width"])
+        batch = next(stages[-1][1].batches(len(kept), np.random.default_rng(0)))
+        shapes = {k: list(v.shape) for k, v in batch.items()}
+        want = [len(kept), DATA_RECIPE["height"], DATA_RECIPE["width"], 3]
+        if [s for s, _ in stages] != ["Final"] or any(s != want for s in shapes.values()):
+            failures.append(f"data: curriculum stages {[s for s, _ in stages]}, batch {shapes}")
+
+        with open(session / f"Scene_{kept[0]:05d}.json") as f:
+            desc = json.load(f)
+        syncs = _convergence_syncs(desc, kept[0])
+        card = _substrate_on_card(desc["substrateSeedsV2"][0], failures)
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+        with contextlib.suppress(OSError):
+            CORPUS_DIR.rmdir()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    scenes = clock.scenes()
+    conv = [s for s in scenes if "convergence_ms" in s]
+    conv_s = sum(s["convergence_ms"][0] for s in conv) / 1e3
+    conv_frames = sum(s["frames"] for s in conv)
+    return dict(recipe="runs/gen_dataset_r2.py:17-31, 4 of 160 scenes", samples=DATA_SAMPLES,
+                kept=kept, discarded=discarded, scenes=scenes,
+                ms_per_scene=sum(s["total_ms"] for s in scenes) / len(scenes),
+                substrate_ms=clock.substrate_ms,
+                frames_to_convergence=[s.get("frames") for s in scenes],
+                photons_per_second=2 * DATA_RECIPE["convergence_profile"].rays_per_frame
+                * conv_frames / conv_s,
+                convergence_host_syncs=syncs, exrs=len(exrs), native_reads=native_reads,
+                resume_ms=resume_ms, consolidated_ids=consolidated, batch_shapes=shapes,
+                substrate_card_vs_cpu=card, launches=launches)
+
+
+# The Abduction demo at its defaults and the picker on the README
+# quickstart.
+PICKER_STEPS = 4
+
+
+@contextlib.contextmanager
+def _frame_probe(record: dict):
+    """Wrap the demo's relight, tone map and render_frame: the devices of
+    the HDR and of the composite, and each frame's range."""
+    relight, tone, render = (abduction.relight_layer, abduction.tonemap_uchimura,
+                             abduction.render_frame)
+
+    def relight_probe(hdr, *a, **kw):
+        record["hdr_devices"].add(hdr.device.type)
+        return relight(hdr, *a, **kw)
+
+    def tone_probe(comp, *a, **kw):
+        record["composite_devices"].add(comp.device.type)
+        return tone(comp, *a, **kw)
+
+    def render_probe(*a, **kw):
+        frame = render(*a, **kw)
+        record["frames"] += 1
+        record["finite"] &= bool(np.isfinite(frame).all())
+        record["min"] = min(record["min"], float(frame.min()))
+        record["max"] = max(record["max"], float(frame.max()))
+        return frame
+
+    abduction.relight_layer, abduction.tonemap_uchimura = relight_probe, tone_probe
+    abduction.render_frame = render_probe
+    try:
+        yield
+    finally:
+        abduction.relight_layer, abduction.tonemap_uchimura = relight, tone
+        abduction.render_frame = render
+
+
+def _sequence(name: str, fn, failures: list) -> tuple[dict, object]:
+    record = dict(hdr_devices=set(), composite_devices=set(), frames=0, finite=True,
+                  min=float("inf"), max=float("-inf"))
+    reset_counts()
+    with _frame_probe(record):
+        out, ms = _read_ms(fn)
+    launches = read_counts()
+    if not record["finite"] or record["min"] < 0 or record["max"] > 1:
+        failures.append(f"{name}: a frame is not finite in [0, 1]: {record}")
+    if record["hdr_devices"] != {"cuda"} or record["composite_devices"] != {"cuda"}:
+        failures.append(f"{name}: the HDR or the composite left the card: {record}")
+    if missing := unlaunched(launches, RESOLVE_KERNELS):
+        failures.append(f"{name}: kernels of the path were not launched: {missing}")
+    return dict(frames=record["frames"], ms_per_frame=ms / max(record["frames"], 1),
+                frame_min=record["min"], frame_max=record["max"], launches=launches), out
+
+
+def _picker_run(root: Path, failures: list) -> dict:
+    """diag.picker on the README quickstart at 256² with the simulation
+    phase's AIAccelerator: each view timed (host clock, synchronized),
+    then dump_all."""
+    sim = Simulation(**dict(README_SIM, frame_limit=PICKER_STEPS))
+    sim.set_scene(readme_scene())
+    weights = convert.unet_from_flax(flax_tree(AI_NET, UNET_SEED), **AI_NET)
+    acc = pipeline.AIAccelerator(sim, weights, blend="auto", **AI_NET)
+    reset_counts()
+    sim.run()
+    views = {}
+    for which in picker.TextureType:
+        img, ms = _read_ms(lambda: picker.pick(sim, which, ai=acc))
+        views[which.value] = dict(ms=ms, shape=list(img.shape), max=float(img.max()))
+        if img.ndim != 3 or img.shape[-1] != 3 or not np.isfinite(img).all():
+            failures.append(f"picker: {which.value} is not a finite (H, W, 3) image")
+    launches = read_counts()
+    paths = picker.dump_all(sim, str(root / "picker"), ai=acc)
+    if len(paths) != len(picker.TextureType) or not all(Path(p).exists() for p in paths):
+        failures.append(f"picker: dump_all wrote {len(paths)} files")
+    if missing := unlaunched(launches, RESOLVE_KERNELS):
+        failures.append(f"picker: kernels of the path were not launched: {missing}")
+    return dict(size=SIM_SIZE, steps=PICKER_STEPS, views=views,
+                ms_per_view=sum(v["ms"] for v in views.values()) / len(views),
+                pngs=len(paths), launches=launches)
+
+
+def demo_phase() -> dict:
+    """render_sequence and play_sequence at their defaults, play_sequence's
+    state against the same script on an AbductionGame alone, and the picker;
+    files in _smoke/demo/ (removed at the end)."""
+    failures = []
+    root = CORPUS_DIR / "demo"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        render, paths = _sequence("render_sequence",
+                                  lambda: abduction.render_sequence(str(root / "render")),
+                                  failures)
+        play, out = _sequence("play_sequence",
+                              lambda: abduction.play_sequence(str(root / "play")), failures)
+        alone = game.AbductionGame()
+        script = ([game.GameInput(move_x=1.0)] * 6 + [game.GameInput(tractor=True)] * 8
+                  + [game.GameInput(move_x=-0.6, tractor=True)] * 6)
+        for inp in script:
+            alone.step(0.25, inp)
+        frames = out.pop("frames")
+        if out != alone.scene_params() or len(frames) != len(script) or len(paths) != 8:
+            failures.append("play_sequence: its state differs from the game's alone, or "
+                            f"{len(frames)} / {len(paths)} frames")
+        pick = _picker_run(root, failures)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        with contextlib.suppress(OSError):
+            CORPUS_DIR.rmdir()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    launches = {name: render["launches"][name] + play["launches"][name]
+                + pick["launches"][name] for name in COUNTERS}
+    return dict(render_sequence=dict(render, width=128, rays=16384, sim_frames=3),
+                play_sequence=dict(play, width=128, rays=8192, sim_frames=2,
+                                   score=out["score"], state=out["state"], won=out["won"]),
+                picker=pick, launches=launches)
 
 
 def rotfused_split_phase() -> tuple[dict, dict]:
@@ -2474,6 +2853,18 @@ def main() -> None:
     phase("train", t0)
     print(json.dumps({"train": trn}))
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    data = data_phase()
+    phase("data", t0)
+    print(json.dumps({"data": data}))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    demo = demo_phase()
+    phase("demo", t0)
+    print(json.dumps({"demo": demo}))
+    torch.cuda.empty_cache()
     _recording[0] = None
     print(json.dumps({"kernel_signatures": dict(
         checked=len(SIGNATURES["checked"]), path=len(SIGNATURES["path"]),
@@ -2512,7 +2903,7 @@ def main() -> None:
     paths = {"bench_frame": frame["launches"], "pipeline": pipe["launches"],
              "fused_resolve": fused["launches"], "production": prod["launches"],
              "simulation": sim["launches"], "hybrid": hyb["launches"],
-             "train": trn["launches"],
+             "train": trn["launches"], "data": data["launches"], "demo": demo["launches"],
              "rotfused_split": split_launches,
              "microops": micro_launches}
     drives = {"rotate_planar_sum_fused": "fused_resolve",

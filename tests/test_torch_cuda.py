@@ -594,3 +594,44 @@ def test_pair_training_is_sync_free(dev, monkeypatch):
         torch.cuda.set_sync_debug_mode("default")
     assert all(bool(torch.isfinite(x)) for x in losses)
     assert int(tr.optimizer.state["count"]) == 6 == tr.global_step
+
+
+@pytest.mark.parametrize("seed,version,size", [(11, 2, 256), (7, 1, 512)])
+def test_substrate_on_card_matches_cpu(dev, seed, version, size):
+    """A substrate generated on the card against the same params on the
+    CPU: to 1e-5, away from texels whose shape test flips between the two
+    (at most 2, each within 1e-5 of a shape's edge in local coordinates)."""
+    from litbox_tpu_torch.data import substrate
+
+    p = substrate.generate_random_params(seed, version, size)
+    got = substrate.generate_texture(p, dev)
+    assert got.device.type == "cuda"
+    want = substrate.generate_texture(p, "cpu")
+    _, _, xy = substrate._grid(size, "cpu")
+    flips = substrate._inside(p, xy.to(dev)).cpu() != substrate._inside(p, xy)
+    assert int(flips.sum()) <= 2
+    keep = torch.ones((size, size), dtype=torch.bool)
+    for fy, fx in torch.nonzero(flips).tolist():
+        ys, xs = torch.meshgrid(torch.arange(size), torch.arange(size), indexing="ij")
+        keep &= torch.hypot((ys - fy).float(), (xs - fx).float()) > p.edge_blur + 2
+    torch.testing.assert_close(got.cpu()[keep], want[keep], atol=1e-5, rtol=0)
+
+
+def test_relight_and_analysis_on_card_match_cpu(dev):
+    """relight_layer and analysis_b on the card against the same calls on
+    CPU copies, to 1e-6 of each output's maximum."""
+    from litbox_tpu_torch.diag.analysis import analysis_a, analysis_b
+    from litbox_tpu_torch.post.cloud_relight import relight_layer
+
+    hdr = _rand(dev, 70, (128, 128, 3), 0.0, 4.0)
+    trans = _rand(dev, 71, (128, 128), 0.2, 1.0)
+    albedo = _rand(dev, 72, (128, 128, 4))
+    hdr_b = _rand(dev, 73, (128, 128, 3), 0.0, 4.0)
+    for fn, args in ((lambda h, t: relight_layer(h, t, 1.5, 3.0), (hdr, trans)),
+                     (lambda a, b, al: analysis_b(analysis_a(a, b), al, a, analysis_a(a, b)),
+                      (hdr, hdr_b, albedo))):
+        got = fn(*args)
+        want = fn(*(x.cpu() for x in args))
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-6 * float(want.abs().max()))
