@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from litbox_tpu_torch/csrc (one nvcc call)
 and, at first use, the EXR decoder (litbox_tpu_torch/native, one g++ call),
-and runs twelve phases, each printed with its wall seconds:
+and runs thirteen phases, each printed with its wall seconds:
 
 - kernels: each kernel (K1 scan, K2 shear, K3 shear_reduce, K4 fused
   rotate-and-sum) held against its plain PyTorch version at the shapes of
@@ -13,7 +13,9 @@ and runs twelve phases, each printed with its wall seconds:
   (the exact collimated field's one bin at S=1024 and 384, K2 and K3 on
   interleaved rows; the paired engine's two-tracer scan and the realtime
   configuration's group of 16 at S=384; the demo phase's full resolve at
-  S=256), each timed (CUDA events, median of 7) beside
+  S=256; the parallel phase's bin-sharded resolves, K2 and K3 on
+  interleaved rows of D/n bins at S=640, and at S=384 with more than one
+  card), each timed (CUDA events, median of 7) beside
   the bound and a library yardstick where one exists; K2 and K3 at the
   per-frame resolve's shape from a flushed L2, K3 held equal to the
   in-order sum of K2's outputs bit for bit, and K4 also with LARGE_DELTA,
@@ -116,6 +118,25 @@ and runs twelve phases, each printed with its wall seconds:
   sequence's first frame is simulated: ROADMAP C7). Then diag.picker on
   the README quickstart at 256² (4 steps) with the simulation phase's
   AIAccelerator: ms a view, all 12 views finite, dump_all writing 12 PNGs.
+- parallel: litbox_tpu_torch/parallel/ on a world of every visible card
+  with NCCL (one rank a card, rank 0 in this process, the others spawned
+  by parallel/world.py; no fallback to gloo), printing world_size and
+  backend, in four configurations at full width: oracle
+  (sharded_trace_frame on the README scene at 256², 65,536 photons a
+  rank, one frame); rbt (tests/test_parallel.py's realistic shape: 256²,
+  S=384, D=128, 65,536 photons a rank, 2 bounces, 4 frames, then
+  sharded_rbt_resolve, held to the mean over the ranks of resolve_raw
+  within 1e-6 of its maximum, and sharded_rbt_resolve_bins, held to it
+  within RESOLVE_TOL); bins (the shipped frame's scene, S=640, D=128,
+  131,072 + 16,384 photons a row, 3 bounces, BRDF on: the first frame +
+  bins_resolve held to the unsharded rbt_trace_frame + resolve_raw on the
+  generator row 0 derives within 2e-4 relative and 1e-6 absolute, no
+  all-to-all overflow, then 4 timed frames); train
+  (build_sharded_train_step at its defaults, 3 steps with TF32 off, the
+  first loss within 1e-4 of an unsharded step of the port's net). ms a
+  frame or a step, peak memory above each configuration's start (the
+  fields, sources or net included); K1-K3 must be launched by the sharded
+  calls (the references beside them are not counted).
 - rotfused_split: the four variants of K4's cost split (V1-V4,
   litbox_tpu_torch/prof/rotfused.py, runs/prof_rotfused.py's kernels) and
   K4 itself (also with a 1.2 rad delta, LARGE_DELTA), timed at
@@ -141,7 +162,7 @@ Every kernel counter is set to 0 just before a path is driven and read just
 after; a kernel of the path that was not launched, or any failed check,
 raises, so the exit code is not 0. Each K1-K3 launch's shape and static
 arguments are recorded, in the kernels phase where the kernel is held
-against its plain version and on the paths from frame to demo; a
+against its plain version and on the paths from frame to parallel; a
 path launch at a shape the kernels phase did not hold raises too (the
 `kernel_signatures` line). The lines before the last carry one JSON
 line per phase, the kernels line and the card's name and power limit; the
@@ -174,9 +195,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
-from litbox_tpu_torch import convert, native
+from litbox_tpu_torch import convert, native, parallel
 from litbox_tpu_torch.core import luts
 from litbox_tpu_torch.core.types import REALTIME_1080P, SimulationProfile
 from litbox_tpu_torch.data import factory as data_factory
@@ -188,9 +210,11 @@ from litbox_tpu_torch.io import read_exr_rgb, read_image_linear, write_exr_rgb
 from litbox_tpu_torch.nn import train
 from litbox_tpu_torch.nn.dataset import build_curriculum
 from litbox_tpu_torch.nn.device_data import DeviceStages, stack_stage
-from litbox_tpu_torch.nn.loss import HdrLossConfig
-from litbox_tpu_torch.nn.unet import LitboxDenoiserNet, TransformConfig
+from litbox_tpu_torch.nn.loss import HdrLossConfig, hdr_loss
+from litbox_tpu_torch.nn.unet import LitboxDenoiserNet, TransformConfig, init_weights
 from litbox_tpu_torch.ops import attnscan, cuda_lib, rotate
+from litbox_tpu_torch.parallel import train_sharded as parallel_train
+from litbox_tpu_torch.parallel import world as par_world
 from litbox_tpu_torch.prof import microops, rotfused
 from litbox_tpu_torch.scene import SceneBuilder, rasterize
 from litbox_tpu_torch.sim import rbt, tracers
@@ -648,8 +672,22 @@ def kernels_phase() -> dict:
     # bins (3*32 images). The hybrid phase's cascade at S=384: K2 and K3 on
     # the D bins' interleaved rows (rotate_back and the forward rotation).
     # The demo phase's Simulation at 128²: the full resolve at S=256 (rows
-    # 64..192).
+    # 64..192). The parallel phase's bin-sharded resolves: K1 and
+    # rotate_bins' interleaved K2 and K3 on each rank's D/n bins, at S=384
+    # (the data-parallel RBT) and S=640 (the bin-sharded RBT); with one card
+    # D/n = D, and the S=384 cases are the hybrid phase's.
     # main() raises if a path launches K1-K3 at a shape not held here.
+    dl = d // torch.cuda.device_count()
+    sharded = dict(
+        attenuation_scan_rows=(() if dl == d else (check_scan(gen, dl, 384, 1, 0, 1),
+                                                   check_scan(gen, dl, 640, 1, 0, 1))),
+        shear=((check_shear_interleaved(gen, 640, 1, 3, n=dl),
+                check_shear_interleaved(gen, 640, 3, 1, n=dl))
+               + (() if dl == d else (check_shear_interleaved(gen, 384, 1, 3, n=dl),
+                                      check_shear_interleaved(gen, 384, 3, 1, n=dl)))),
+        shear_reduce=((check_shear_reduce_interleaved(gen, 640, 128, 512, n=dl),)
+                      + (() if dl == d else (
+                          check_shear_reduce_interleaved(gen, 384, 64, 320, n=dl),))))
     results = {
         "attenuation_scan_rows": (check_scan(gen, d, 384, 1, 0, 1),
                                   check_scan(gen, d, 640, 1, 0, 1),
@@ -687,6 +725,8 @@ def kernels_phase() -> dict:
             check_rotfused(gen, 384, 1, jitter), check_rotfused(gen, 640, 1, jitter),
             check_rotfused(gen, 640, 4, 0.0), check_rotfused(gen, 640, 1, LARGE_DELTA)),
     }
+    for name, cases in sharded.items():
+        results[name] += cases
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return results
@@ -1997,14 +2037,15 @@ def _corpus(root: Path, failures: list) -> dict:
 
 def _twin_grads(trainer, device: str, inputs, targets) -> tuple[float, dict]:
     """The loss and gradients of one step of `trainer`'s recipe from its
-    current weights on `device` (a copy of the net: the trainer's own
-    running statistics do not move)."""
+    current weights on `device`, taken as its steps take them
+    (Trainer.gradients); a copy of the net, so the trainer's own running
+    statistics do not move."""
     twin = copy.copy(trainer)
     twin.model = copy.deepcopy(trainer.model).to(device)
+    twin.params = dict(twin.model.named_parameters())
     twin.device = torch.device(device)
-    loss = twin.loss(inputs.to(device), targets.to(device))
-    loss.backward()
-    return float(loss.detach()), {k: p.grad.cpu() for k, p in twin.model.named_parameters()}
+    loss = twin.gradients(twin.loss, inputs.to(device), targets.to(device))
+    return float(loss), {k: p.grad.cpu() for k, p in twin.params.items()}
 
 
 def _losses_ok(name: str, losses, failures: list) -> None:
@@ -2536,6 +2577,253 @@ def demo_phase() -> dict:
                 picker=pick, launches=launches)
 
 
+# parallel/ on torch.distributed (the parallel phase): its four
+# configurations at full width on a world of every visible card (NCCL, no
+# fallback), rank 0 in this process, so its launches count here.
+PAR_RBT_SIZE = 256      # tests/test_parallel.py::test_sharded_rbt_realistic_shape
+PAR_RBT_RAYS = 65536    # photons a rank and frame
+PAR_RBT_FRAMES = 4
+PAR_BINS_SEED = 11
+PAR_BINS_FRAMES = 4     # timed frames after the checked one
+PAR_TRAIN = dict(unet_size=5, initial_features=32, batch=4)  # the defaults
+PAR_CROP = 64  # the crop of the JAX function's default, which only sizes its init
+PAR_TRAIN_STEPS = 3
+PAR_EXACT = dict(rtol=2e-4, atol=1e-6)  # tests/test_parallel.py:373 (bins vs unsharded)
+PAR_MEAN_TOL = 1e-6     # sharded_rbt_resolve vs the mean of resolve_raw, of the maximum
+PAR_LOSS_TOL = 1e-4     # first sharded loss vs an unsharded step, relative
+
+
+class _PathCounts:
+    """Launches of the sharded calls only: the references computed beside
+    them (the unsharded frame, resolve_raw) launch K1-K3 too and do not
+    count."""
+
+    def __init__(self):
+        self.launches = {name: 0 for name in COUNTERS}
+
+    @contextlib.contextmanager
+    def path(self):
+        before = read_counts()
+        try:
+            yield
+        finally:
+            for name, count in read_counts().items():
+                self.launches[name] += count - before[name]
+
+
+def _rel_max(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def _par_oracle(counted: _PathCounts, failures: list) -> dict:
+    """sharded_trace_frame on the README quickstart at 256², the simulation
+    phase's oracle budget and the interval and bounces its Simulation takes
+    (integration_interval 0.1 of the height, the scene's 3 bounces)."""
+    scene = readme_scene()
+    gb = rasterize(scene, SIM_SIZE, SIM_SIZE)
+    brdf = torch.from_numpy(luts.brdf_lut()).cuda()
+    interval = max(1.0, SimulationProfile().integration_interval * SIM_SIZE)
+    mesh = parallel.make_mesh()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with counted.path():
+        (raw, writes), ms = _read_ms(lambda: parallel.sharded_trace_frame(
+            mesh, gb, scene.lights, scene.field_textures, brdf, gen, SIM_RAYS, interval,
+            -1, max_bounces=3))
+    if tuple(raw.shape) != (1, SIM_SIZE, SIM_SIZE, 3) or not bool(torch.isfinite(raw).all()) \
+            or float(raw.sum()) <= 0 or int(writes.min()) <= 0:
+        failures.append(f"parallel oracle: raw {tuple(raw.shape)} sum {float(raw.sum())}, "
+                        f"writes {writes.tolist()}")
+    return dict(ms_per_frame=ms, rays_per_rank=SIM_RAYS, interval=interval,
+                writes=writes.tolist())
+
+
+def _par_rbt(counted: _PathCounts, failures: list) -> dict:
+    """sharded_rbt_trace_frame for PAR_RBT_FRAMES frames, then both
+    resolves, at test_sharded_rbt_realistic_shape's configuration (256²,
+    S=384, D=128, 65,536 photons a rank, 2 bounces, MC direct). The full
+    resolve against the mean over the ranks of resolve_raw (PAR_MEAN_TOL),
+    the bin resolve against the full one (RESOLVE_TOL)."""
+    w = PAR_RBT_SIZE
+    b = SceneBuilder()
+    b.add_point_light((w / 2, w / 2), radius=2.0, intensity=1.5, bounces=2)
+    b.add_rect((w / 2, w / 2), (w, w), log_density=-1.2)
+    scene = b.build(max_lights=1, max_shapes=1, device="cuda")
+    gb = rasterize(scene, w, w)
+    brdf = torch.from_numpy(luts.brdf_lut((16, 5, 3))).cuda()
+    fields = rbt.precompute_rotated_fields(gb, n_bins=N_BINS)
+    mesh = parallel.make_mesh()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    src = parallel.zero_sources_sharded(mesh, fields)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with counted.path():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PAR_RBT_FRAMES):
+            src, emitted = parallel.sharded_rbt_trace_frame(
+                mesh, fields, src, gb, scene.lights, scene.field_textures, brdf, gen,
+                PAR_RBT_RAYS, -1, max_bounces=2, mc_direct=True, analytic_direct=False)
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) * 1e3 / PAR_RBT_FRAMES
+        full, full_ms = _read_ms(lambda: parallel.sharded_rbt_resolve(mesh, fields, src, w, w))
+        bins, bins_ms = _read_ms(lambda: parallel.sharded_rbt_resolve_bins(
+            mesh, fields, src, w, w))
+    peak = torch.cuda.max_memory_allocated() - base
+    mean = rbt.resolve_raw(fields, src, w, w)
+    dist.all_reduce(mean, dist.ReduceOp.AVG)
+    mean_err, bins_err = _rel_max(full[0], mean), _rel_max(bins, full)
+    world_size = dist.get_world_size()
+    if emitted.tolist() != [world_size * PAR_RBT_RAYS]:
+        failures.append(f"parallel rbt: emitted {emitted.tolist()}")
+    if not bool(torch.isfinite(full).all()) or float(full.sum()) <= 0:
+        failures.append("parallel rbt: the resolved map is not finite and positive")
+    if mean_err > PAR_MEAN_TOL:
+        failures.append(f"parallel rbt: sharded_rbt_resolve vs the mean of resolve_raw "
+                        f"{mean_err} > {PAR_MEAN_TOL}")
+    if bins_err > RESOLVE_TOL:
+        failures.append(f"parallel rbt: sharded_rbt_resolve_bins vs sharded_rbt_resolve "
+                        f"{bins_err} > {RESOLVE_TOL}")
+    return dict(size=w, s=fields.size, n_bins=N_BINS, rays_per_rank=PAR_RBT_RAYS,
+                frames=PAR_RBT_FRAMES, ms_per_frame=frame_ms, resolve_ms=full_ms,
+                resolve_bins_ms=bins_ms, peak_above_start_bytes=peak,
+                resolve_vs_mean_max_rel=mean_err, bins_vs_resolve_max_rel=bins_err)
+
+
+def _par_bins(counted: _PathCounts, failures: list) -> dict:
+    """bins_trace_frame + bins_resolve on the shipped frame's scene
+    (480x272, S=640, D=128) at REALTIME_1080P's budget per tracer, 3
+    bounces (waves 1 and 2 through the all-to-all), BRDF on: the first
+    frame against the port's unsharded frame + resolve_raw on the generator
+    row 0 derives (PAR_EXACT), no overflow; then PAR_BINS_FRAMES timed
+    frames."""
+    prof = REALTIME_1080P
+    h, w = prof.sim_height, prof.sim_width
+    scene, gb = build_scene(w, h, tex=256)
+    brdf = torch.from_numpy(luts.brdf_lut()).cuda()
+    fields = rbt.precompute_rotated_fields(gb, n_bins=prof.n_bins)
+    photons, bounce = prof.photons // 2, prof.bounce_photons // 2
+    opts = dict(max_bounces=4, bounce_photons=bounce, enable_brdf=True)
+    mesh = parallel.make_bins_mesh()
+    bf = parallel.shard_fields_bins(mesh, fields)
+    src = parallel.zero_sources_bins(mesh, bf)
+    gen = torch.Generator(device="cuda").manual_seed(PAR_BINS_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with counted.path():
+        (src, emitted, overflow), first_ms = _read_ms(lambda: parallel.bins_trace_frame(
+            mesh, bf, src, gb, scene.lights, brdf, gen, photons, 3, **opts))
+        raw, resolve_ms = _read_ms(lambda: parallel.bins_resolve(mesh, bf, src, h, w))
+    seeded = torch.Generator(device="cuda").manual_seed(PAR_BINS_SEED)
+    src_ref, n_ref = rbt.rbt_trace_frame(
+        fields, rbt.zero_sources(fields), gb, scene.lights, scene.field_textures, brdf,
+        par_world.derive_generator(seeded, 0, 1), photons, 3, mc_direct=True,
+        analytic_direct=False, hist_direct=True, **opts)
+    ref = rbt.resolve_raw(fields, src_ref, h, w)
+    del src_ref
+    excess = float(((raw[0] - ref).abs() - (PAR_EXACT["atol"] + PAR_EXACT["rtol"] * ref.abs()))
+                   .max())
+    max_abs, max_rel = float((raw[0] - ref).abs().max()), _rel_max(raw[0], ref)
+    del ref
+    if excess > 0:
+        failures.append(f"parallel bins: row 0 vs the unsharded frame exceeds {PAR_EXACT} "
+                        f"by {excess} (max_abs_err {max_abs})")
+    if overflow.tolist() != [0]:
+        failures.append(f"parallel bins: all-to-all overflow {overflow.tolist()}")
+    if emitted.tolist() != [n_ref]:
+        failures.append(f"parallel bins: emitted {emitted.tolist()} vs {n_ref}")
+    with counted.path():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PAR_BINS_FRAMES):
+            src, _, overflow = parallel.bins_trace_frame(
+                mesh, bf, src, gb, scene.lights, brdf, gen, photons, 3, **opts)
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) * 1e3 / PAR_BINS_FRAMES
+        raw = parallel.bins_resolve(mesh, bf, src, h, w)
+    peak = torch.cuda.max_memory_allocated() - base
+    if overflow.tolist() != [0] or not bool(torch.isfinite(raw).all()):
+        failures.append(f"parallel bins: later frames overflow {overflow.tolist()} or "
+                        "a map that is not finite")
+    return dict(width=w, height=h, s=fields.size, n_bins=prof.n_bins,
+                bins_per_rank=int(bf.trans.shape[0]), photons=photons,
+                bounce_photons=bounce, first_frame_ms=first_ms, ms_per_frame=frame_ms,
+                resolve_ms=resolve_ms, peak_above_start_bytes=peak,
+                vs_unsharded_max_abs_err=max_abs, vs_unsharded_max_rel=max_rel,
+                vs_unsharded_excess=excess, overflow=0)
+
+
+def _par_train(counted: _PathCounts, failures: list) -> dict:
+    """build_sharded_train_step at its defaults (size 5, 32 features, crop
+    64, batch 4) for PAR_TRAIN_STEPS steps with TF32 off on the batch of
+    test_sharded_train_bn_stats_are_global at crop 64: finite losses, the
+    first within PAR_LOSS_TOL of an unsharded step of the port's net from
+    the same init."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    crop, batch = PAR_CROP, PAR_TRAIN["batch"]
+    rng = np.random.default_rng(0)
+    inputs = rng.normal(size=(batch, crop, crop, 1)).astype(np.float32)
+    targets = rng.normal(size=(batch, crop, crop, 1)).astype(np.float32) ** 2
+    mesh = parallel_train.make_train_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run, params, stats, opt = parallel_train.build_sharded_train_step(mesh, **PAR_TRAIN)
+    losses, ms = [], []
+    with counted.path():
+        for _ in range(PAR_TRAIN_STEPS):
+            (params, stats, opt, loss), step_ms = _read_ms(
+                lambda: run(params, stats, opt, inputs, targets))
+            losses.append(float(loss))
+            ms.append(step_ms)
+    peak = torch.cuda.max_memory_allocated() - base
+    n_params = sum(p.numel() for p in params.values())
+    del run, params, stats, opt
+    net = LitboxDenoiserNet(unet_size=PAR_TRAIN["unet_size"],
+                            initial_features=PAR_TRAIN["initial_features"]).cuda()
+    init_weights(net, torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        ref = float(hdr_loss(net(torch.from_numpy(inputs).cuda(), train=True),
+                             torch.from_numpy(targets).cuda(), HdrLossConfig()))
+    del net
+    rel = abs(losses[0] - ref) / max(abs(ref), 1e-30)
+    if not all(np.isfinite(losses)) or rel > PAR_LOSS_TOL:
+        failures.append(f"parallel train: losses {losses}, the first vs unsharded {ref} "
+                        f"({rel} > {PAR_LOSS_TOL})")
+    return dict(PAR_TRAIN, crop=crop, mesh=par_world.mesh_shape(mesh), params_on_rank=n_params,
+                losses=losses, unsharded_first_loss=ref, first_loss_rel=rel,
+                first_step_ms=ms[0], ms_per_step=statistics.mean(ms[1:]),
+                peak_above_start_bytes=peak)
+
+
+def parallel_rank() -> dict:
+    """One rank's four configurations of the parallel phase (every rank
+    holds the same checks); raises if one fails."""
+    failures = []
+    counted = _PathCounts()
+    out = dict(oracle=_par_oracle(counted, failures), rbt=_par_rbt(counted, failures))
+    torch.cuda.empty_cache()
+    out["bins"] = _par_bins(counted, failures)
+    torch.cuda.empty_cache()
+    out["train"] = _par_train(counted, failures)
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"rank {dist.get_rank()}: " + "; ".join(failures))
+    return dict(out, launches=counted.launches)
+
+
+def parallel_phase() -> dict:
+    """litbox_tpu_torch/parallel/ on a world of every visible card with
+    NCCL: the data-parallel oracle and RBT, the bin-sharded RBT and the
+    sharded training step (parallel_rank). K1-K3 must be launched by the
+    sharded calls."""
+    n = torch.cuda.device_count()
+    reset_counts()
+    out = par_world.run(parallel_rank, n, device="cuda", inline_rank0=True, timeout=300)[0]
+    if missing := unlaunched(out["launches"], RESOLVE_KERNELS):
+        raise AssertionError(f"parallel: kernels of the path were not launched: {missing}")
+    return dict(world_size=n, backend=par_world.backend_for("cuda"), **out)
+
+
 def rotfused_split_phase() -> tuple[dict, dict]:
     """runs/prof_rotfused.py on the card: V1-V4 and K4 on the same images,
     at the script's (384, 640, 640) and at the frame's group shape
@@ -2865,6 +3153,12 @@ def main() -> None:
     phase("demo", t0)
     print(json.dumps({"demo": demo}))
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    par = parallel_phase()
+    phase("parallel", t0, world_size=par["world_size"], backend=par["backend"])
+    print(json.dumps({"parallel": par}))
+    torch.cuda.empty_cache()
     _recording[0] = None
     print(json.dumps({"kernel_signatures": dict(
         checked=len(SIGNATURES["checked"]), path=len(SIGNATURES["path"]),
@@ -2904,6 +3198,7 @@ def main() -> None:
              "fused_resolve": fused["launches"], "production": prod["launches"],
              "simulation": sim["launches"], "hybrid": hyb["launches"],
              "train": trn["launches"], "data": data["launches"], "demo": demo["launches"],
+             "parallel": par["launches"],
              "rotfused_split": split_launches,
              "microops": micro_launches}
     drives = {"rotate_planar_sum_fused": "fused_resolve",

@@ -18,6 +18,9 @@ neither it nor JAX. It keeps the JAX package's layout:
           first use, loaded with ctypes)
   engine/ Simulation (the user's entry point), AIAccelerator, the fused
           pipeline and the shipped realtime frame
+  parallel/ the scaling design on torch.distributed: the data-parallel
+          oracle and RBT, the bin-sharded RBT, the sharded training step,
+          and the runner that starts the ranks
   convert.py  carries state across from the JAX package as numpy dicts,
           and the UNet's weights back to Flax's layout
 

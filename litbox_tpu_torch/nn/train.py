@@ -16,6 +16,9 @@ The clip, the schedule and the Adam step stay on the device, so
 `train_batch_async` and `train_batch_pair_async` never wait for it;
 `train_batch` and `fit` read the loss each step, as the JAX package's do.
 
+A step's forward and backward run under `step_convolutions`: on a card,
+PyTorch's own convolution kernels instead of cuDNN's (see there).
+
 `save` writes the JAX package's npz layout: `params:<flax path>`,
 `stats:<flax path>`, the optimizer under optax's paths (`opt:2/0/.count`,
 `opt:2/0/.mu/...`, `opt:2/0/.nu/...`, `opt:2/1/.count` with a schedule),
@@ -25,6 +28,7 @@ the other's checkpoint.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -42,6 +46,26 @@ from .unet import (LitboxDenoiserNet, TransformConfig, init_weights, post_transf
                    pre_transform)
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
+
+
+@contextlib.contextmanager
+def step_convolutions(device: str | torch.device):
+    """The convolutions of a training step's forward and backward: on a
+    CUDA device, PyTorch's own kernels (cuDNN off, restored on exit);
+    elsewhere nothing changes. In float32 on HDR crops, cuDNN's gradients
+    of TrainConfig()'s net strayed up to 1.15e-3 of the largest gradient
+    from float64 (the first residual block's conv1 weight, on an H100),
+    PyTorch's 0.7-1.4e-5. The backward picks its kernels when it runs, so
+    the loss's backward belongs inside too. Inference keeps cuDNN."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = saved
 
 
 @dataclasses.dataclass
@@ -223,27 +247,35 @@ class Trainer:
             loss = loss + cfg.raw_loss_weight * hdr_loss((out_a + out_b) * 0.5, ref, cfg.loss)
         return loss
 
-    def _step(self, loss: torch.Tensor) -> torch.Tensor:
-        """Backward, then one optimizer update; the gradients stay in each
-        parameter's .grad."""
+    def gradients(self, loss_fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
+        """loss_fn(*args) and its backward under step_convolutions, with
+        each parameter's gradient in its .grad; returns the loss, detached."""
         for p in self.params.values():
             p.grad = None
-        loss.backward()
+        with step_convolutions(self.device):
+            loss = loss_fn(*args)
+            loss.backward()
+        return loss.detach()
+
+    def _step(self, loss_fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
+        """The gradients, then one optimizer update; the gradients stay in
+        each parameter's .grad."""
+        loss = self.gradients(loss_fn, *args)
         self.optimizer.step({k: p.grad for k, p in self.params.items()})
         self.global_step += 1
-        return loss.detach()
+        return loss
 
     def train_batch_async(self, inputs, targets) -> torch.Tensor:
         """One step; returns the loss as a 0-d tensor on the device, with no
         host read."""
-        return self._step(self.loss(inputs, targets))
+        return self._step(self.loss, inputs, targets)
 
     def train_batch_pair_async(self, a, b, ref) -> torch.Tensor:
         """Composition-in-the-loss step (pair_composition=True); returns the
         device loss like train_batch_async."""
         if not self.cfg.pair_composition:
             raise ValueError("train_batch_pair_async needs TrainConfig.pair_composition")
-        return self._step(self.pair_loss(a, b, ref))
+        return self._step(self.pair_loss, a, b, ref)
 
     def train_batch(self, inputs, targets) -> float:
         return float(self.train_batch_async(inputs, targets))

@@ -50,15 +50,27 @@ class Conv3x3(nn.Module):
         return self.conv(F.pad(x, (1, 1, 1, 1), mode=self.pad_mode))
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """The BatchNorm2d that `_bn` runs, with one hook: `reduce_moments`.
+
+    None on a single device. Otherwise a function (mean, mean_sq) ->
+    (mean, mean_sq) that `_bn` applies in training to the local batch's
+    E[x] and E[x^2] over (N, H, W); the data-parallel step
+    (parallel/train_sharded.py) sets it on every instance to average them
+    over its ranks, so that the statistics are the global batch's."""
+
+    reduce_moments = None
+
+
 class ResidualBlock(nn.Module):
     """conv-BN-ReLU-conv-BN + shortcut, final ReLU (litbox_model.py:5-25)."""
 
     def __init__(self, in_channels: int, features: int, padding_mode: str = "reflect"):
         super().__init__()
         self.conv1 = Conv3x3(in_channels, features, padding_mode)
-        self.bn1 = nn.BatchNorm2d(features, eps=1e-5)
+        self.bn1 = FlaxBatchNorm2d(features, eps=1e-5)
         self.conv2 = Conv3x3(features, features, padding_mode)
-        self.bn2 = nn.BatchNorm2d(features, eps=1e-5)
+        self.bn2 = FlaxBatchNorm2d(features, eps=1e-5)
         self.shortcut = (nn.Conv2d(in_channels, features, 1)
                          if in_channels != features else None)
 
@@ -69,16 +81,20 @@ class ResidualBlock(nn.Module):
         return F.relu(y + shortcut)
 
 
-def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool) -> torch.Tensor:
+def _bn(bn: FlaxBatchNorm2d, x: torch.Tensor, train: bool) -> torch.Tensor:
     """Flax's BatchNorm on NCHW x, whatever the module's mode: the running
     statistics unless `train`; else the batch's, E[x^2] - E[x]^2 clipped at
     0 as jnp.maximum clips (half the gradient at a tie), with the running
-    statistics moved towards them in place (bn.momentum 0.1 is Flax's 0.9)."""
+    statistics moved towards them in place (bn.momentum 0.1 is Flax's 0.9).
+    The batch's moments pass through `bn.reduce_moments` first, if set."""
     if not train:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                             training=False, eps=bn.eps)
     mean = x.mean(dim=(0, 2, 3))
-    var = torch.maximum((x * x).mean(dim=(0, 2, 3)) - mean * mean, x.new_zeros(()))
+    mean_sq = (x * x).mean(dim=(0, 2, 3))
+    if bn.reduce_moments is not None:
+        mean, mean_sq = bn.reduce_moments(mean, mean_sq)
+    var = torch.maximum(mean_sq - mean * mean, x.new_zeros(()))
     with torch.no_grad():
         m = bn.momentum
         bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean)

@@ -138,7 +138,10 @@ def on_cpu(*tensors) -> bool:
 
 
 def require_cuda_float32(name: str, *tensors) -> None:
-    """Raise unless every tensor is a contiguous float32 tensor on one CUDA device."""
+    """Raise unless every tensor is a contiguous float32 tensor on one CUDA
+    device, and that device is the current one: the library launches on
+    the thread's current device (a rank of a multi-card world sets its own
+    card first), so a kernel never runs on tensors of another card."""
     dev = tensors[0].device
     for x in tensors:
         if x.device != dev:
@@ -149,3 +152,6 @@ def require_cuda_float32(name: str, *tensors) -> None:
             raise TypeError(f"{name}: expected float32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: tensors on {dev}, but the current device is "
+                         f"cuda:{torch.cuda.current_device()} (torch.cuda.set_device first)")

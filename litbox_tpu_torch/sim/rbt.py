@@ -355,13 +355,13 @@ def _row_flight_math(rows: torch.Tensor, xr: torch.Tensor, u_tp: torch.Tensor,
     return hit_x, t_esc, found
 
 
-def _flight_gathered(fields: RotatedFields, row_idx: torch.Tensor,
+def _flight_gathered(table: torch.Tensor, row_idx: torch.Tensor,
                      xr: torch.Tensor, u_tp: torch.Tensor, live: torch.Tensor):
     """`_row_flight_math` for flat photon arrays whose cum-log rows are
-    `cum_log.view(D*S, S)[row_idx]`, gathered a chunk of photons at a time
-    so that the (photons, S) rows never exist in full."""
-    s = fields.size
-    table = fields.cum_log.view(-1, s)
+    `table[row_idx]` (table: the (bins*S, S) rows of a cum-log field),
+    gathered a chunk of photons at a time so that the (photons, S) rows
+    never exist in full."""
+    s = table.shape[-1]
     chunk = max(1, FLIGHT_CHUNK_ELEMS // s)
     parts = [_row_flight_math(table[row_idx[a:a + chunk]], xr[a:a + chunk],
                               u_tp[a:a + chunk], live[a:a + chunk], s)
@@ -377,7 +377,8 @@ def _flight_rows(fields: RotatedFields, pos: torch.Tensor, direction: torch.Tens
     b, cb, sb = _direction_bins(fields, direction)
     xr, yr = _rotated_coords(fields, pos, cb, sb)
     iy = torch.floor(yr).long().clamp(0, s - 1)
-    hit_x, t_esc, found = _flight_gathered(fields, b * s + iy, xr, u_tp, live)
+    hit_x, t_esc, found = _flight_gathered(fields.cum_log.view(-1, s), b * s + iy,
+                                            xr, u_tp, live)
 
     hx = hit_x - s / 2.0
     hy = yr - s / 2.0
@@ -399,8 +400,8 @@ def _flight_stratified(fields: RotatedFields, pos: torch.Tensor, live: torch.Ten
     iy = torch.floor(yr).long().clamp(0, s - 1)
     bins = torch.arange(d_bins, device=pos.device)[:, None]
     hit_x, t_esc, found = _flight_gathered(
-        fields, (bins * s + iy).reshape(-1), xr.reshape(-1), u_tp.reshape(-1),
-        live.reshape(-1))
+        fields.cum_log.view(-1, s), (bins * s + iy).reshape(-1), xr.reshape(-1),
+        u_tp.reshape(-1), live.reshape(-1))
     hit_x, t_esc, found = (a.reshape(xr.shape) for a in (hit_x, t_esc, found))
     hx = hit_x - s / 2.0
     hy = yr - s / 2.0
@@ -823,9 +824,11 @@ def rotate_back(fields: RotatedFields, deposited: torch.Tensor,
 def rotate_back_dense(fields: RotatedFields, deposited: torch.Tensor,
                       height: int, width: int,
                       traced_phase: bool = False) -> torch.Tensor:
-    """Dense reference rotate-back: sample every bin's (S, S, C) deposit map
-    at the target pixels with a bilinear gather and sum over bins. Plain
-    PyTorch, used only by the tests as a second reference for resolve_raw.
+    """Dense rotate-back: sample every bin's (S, S, C) deposit map at the
+    target pixels with a bilinear gather and sum over bins. Plain PyTorch:
+    a second reference for resolve_raw in the tests, and the dense branch
+    of parallel/'s bin-slice resolve (S not a multiple of 128, or fewer
+    than 8 bins a rank).
 
     traced_phase has the JAX package's dense-path meaning, which is none:
     fields.cos/sin already fold the phase in, so the result is the same

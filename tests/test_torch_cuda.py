@@ -542,7 +542,7 @@ def test_trainer_step_on_card_matches_cpu(dev, monkeypatch):
     """One pair step of the same weights and batch on the card (float32
     convolutions: TF32 off) and on the CPU: the loss, every gradient and
     the new running statistics within 1e-3 of the largest magnitude of
-    their tree (cuDNN and the CPU sum in other orders), then the updated
+    their tree (the card and the CPU sum in other orders), then the updated
     parameters likewise. conv_out starts from small random weights: at
     the identity init the pair's corrections are rounding noise, and the
     display's k, their ratio, would differ between any two devices."""
@@ -635,3 +635,45 @@ def test_relight_and_analysis_on_card_match_cpu(dev):
         assert got.device.type == "cuda"
         torch.testing.assert_close(got.cpu(), want, rtol=0,
                                    atol=1e-6 * float(want.abs().max()))
+
+
+def test_kernel_wrappers_refuse_another_card(dev):
+    """The kernel library launches on the current device, so K1's wrapper
+    raises for tensors on another card and runs there once that card is
+    current (as a rank of a multi-card world sets it)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    other = torch.device("cuda", 1)
+    t = _rand(other, 90, (8, 16, 128), 0.3, 1.0)
+    srcs = [_rand(other, 91 + c, (8, 16, 128)) for c in range(3)]
+    with pytest.raises(ValueError, match="current device"):
+        attnscan.attenuation_scan_rows(t, *srcs)
+    with torch.cuda.device(other):
+        got = attnscan.attenuation_scan_rows(t, *srcs)
+        torch.cuda.synchronize()
+    for g, r in zip(got, attnscan.attenuation_scan_rows_plain(t, *srcs)):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
+
+
+def _bin_resolve(fields, src, w):
+    """sharded_rbt_resolve_bins of one ensemble row over the whole world."""
+    from litbox_tpu_torch.parallel import make_mesh, sharded_rbt_resolve_bins
+
+    return sharded_rbt_resolve_bins(make_mesh(), fields, src, w, w)[0].cpu()
+
+
+def test_bin_resolve_world1_nccl_matches_cpu(dev):
+    """A world of one rank with NCCL: sharded_rbt_resolve_bins of a 256²
+    frame (S=384, D=128: K1, then rotate_bins' K2 and K3) equals the same
+    function in a gloo world on CPU copies (the plain versions), within
+    1e-5 of the maximum."""
+    from litbox_tpu_torch.parallel import world
+
+    d, s, w = 128, 384, 256
+    fields = _fields_on("cpu", d, s, w, 0.0, 80)
+    src = tuple(_rand("cpu", 81 + c, (d, s, s)) for c in range(3))
+    ref = world.run(_bin_resolve, 1, fields, src, w, device="cpu", inline_rank0=True)[0]
+    on_card = rbt.RotatedFields(**{k: v.to(dev) for k, v in vars(fields).items()})
+    got = world.run(_bin_resolve, 1, on_card, tuple(c.to(dev) for c in src), w,
+                    device="cuda", inline_rank0=True)[0]
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))

@@ -148,11 +148,10 @@ def _port_stats(tr) -> dict:
     return convert.unet_to_flax(tr.model.state_dict())["batch_stats"]
 
 
-def test_mono_step_matches_jax(mono):
-    jcfg, tcfg, jt = mono
-    x, y = _batch(0, 2, 1)
-
-    def loss_fn(p):  # the JAX Trainer's _build_step loss
+def _jax_mono_step(jcfg, jt, x, y):
+    """The JAX Trainer's _build_step loss, its gradients and the new
+    running statistics."""
+    def loss_fn(p):
         xin, stats = junet.pre_transform(x, jcfg.transform)
         out, upd = jt.model.apply({"params": p, "batch_stats": jt.batch_stats}, xin,
                                   train=True, mutable=["batch_stats"])
@@ -160,12 +159,48 @@ def test_mono_step_matches_jax(mono):
         return jloss.hdr_loss(pred, y, jcfg.loss), upd["batch_stats"]
 
     (loss, stats), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(jt.params)
+    return loss, grads, stats
+
+
+def test_mono_step_matches_jax(mono):
+    jcfg, tcfg, jt = mono
+    x, y = _batch(0, 2, 1)
+    loss, grads, stats = _jax_mono_step(jcfg, jt, x, y)
     tr = _port_trainer(tcfg, jt)
     got = tr.train_batch_async(x, y)
     assert abs(float(got) - float(loss)) <= STEP_TOL * abs(float(loss))
     _assert_trees_close(_port_grads(tr), _np_tree(grads), STEP_TOL, "grads")
     _assert_trees_close(_port_stats(tr), _np_tree(stats), STEP_TOL, "running stats")
     assert tr.global_step == 1 and int(tr.optimizer.state["count"]) == 1
+
+
+def test_gradients_match_jax_without_an_update(mono):
+    """Trainer.gradients (what a step and chip_smoke.py's gate take): the
+    loss and every gradient as the JAX step's, the weights not moved."""
+    jcfg, tcfg, jt = mono
+    x, y = _batch(1, 2, 1)
+    loss, grads, _ = _jax_mono_step(jcfg, jt, x, y)
+    tr = _port_trainer(tcfg, jt)
+    before = {k: p.detach().clone() for k, p in tr.params.items()}
+    got = tr.gradients(tr.loss, x, y)
+    assert not got.requires_grad
+    assert abs(float(got) - float(loss)) <= STEP_TOL * abs(float(loss))
+    _assert_trees_close(_port_grads(tr), _np_tree(grads), STEP_TOL, "grads")
+    assert all(torch.equal(p, before[k]) for k, p in tr.params.items())
+    assert tr.global_step == 0 and int(tr.optimizer.state["count"]) == 0
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_step_convolutions_turn_cudnn_off_on_a_card_only(device, monkeypatch):
+    """step_convolutions turns cuDNN off for a CUDA device only (a device
+    name, no card needed) and restores the setting, on an error too."""
+    monkeypatch.setattr(torch.backends.cudnn, "enabled", True)
+    with ttrain.step_convolutions(device):
+        assert torch.backends.cudnn.enabled == (device == "cpu")
+    assert torch.backends.cudnn.enabled
+    with pytest.raises(KeyError), ttrain.step_convolutions(torch.device(device)):
+        raise KeyError
+    assert torch.backends.cudnn.enabled
 
 
 def test_pair_step_matches_jax(pair):
