@@ -16,7 +16,9 @@ and runs thirteen phases, each printed with its wall seconds:
   S=256; the parallel phase's bin-sharded resolves, K2 and K3 on
   interleaved rows of D/n bins at S=640, and at S=384 with more than one
   card), each timed (CUDA events, median of 7) beside
-  the bound and a library yardstick where one exists; K2 and K3 at the
+  the bound, its share and a library yardstick where one exists (K1 also
+  beside an empty kernel launched on its grid, and from a flushed L2 where
+  its bytes fit the 50 MB L2); K2 and K3 at the
   per-frame resolve's shape from a flushed L2, K3 held equal to the
   in-order sum of K2's outputs bit for bit, and K4 also with LARGE_DELTA,
   two calls held equal bit for bit, beside its own counts of the windows
@@ -225,6 +227,7 @@ from litbox_tpu_torch.sim.oracle import to_hdr
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+L2_BYTES = 50e6            # H100 SXM L2 cache
 
 # bench.py's frame (bench.py:36-98).
 RAYS_PER_FRAME = 2_000_000
@@ -465,10 +468,19 @@ def check_scan(gen, d, s, n_groups, group, tracers) -> dict:
     out = compare("attenuation_scan_rows", got, plain())
     cells = d // n_groups * s * s
     b, by = bound(7 * 4 * cells, 10 * cells)
+    # Bytes that fit the L2 are read from a flushed cache, as a scene's one
+    # collimated scan reads them. An empty kernel on K1's grid and blocks for
+    # this shape, timed the same way: the launch latency under K1's time.
+    cold = 7 * 4 * cells < L2_BYTES
+    lib, stream = cuda_lib.library(), cuda_lib.stream_handle(t.device)
+    empty = lambda: cuda_lib.check(lib.litbox_attnscan_empty(d // n_groups, s, s, stream),
+                                   "attnscan_empty")
+    ms = time_ms(run, cold=cold)
     out.update(shape=f"t({d},{s},{s}) src 3x({tracers * d},{s},{s}) "
-                     f"group {group}/{n_groups} src_offset {args['src_offset']}",
-               ms=time_ms(run), plain_ms=time_ms(plain), bound_ms=b,
-               bound_by=by, library_ms=None)
+                     f"group {group}/{n_groups} src_offset {args['src_offset']}"
+                     f"{' L2 flushed' if cold else ''}",
+               ms=ms, plain_ms=time_ms(plain, cold=cold), bound_ms=b, bound_by=by,
+               share=b / ms, empty_launch_ms=time_ms(empty, cold=cold), library_ms=None)
     return out
 
 
@@ -2830,7 +2842,8 @@ def rotfused_split_phase() -> tuple[dict, dict]:
     (24, 640, 640), K4 also with LARGE_DELTA, timed from device memory (the
     group shape is under the L2 size, so the cache is flushed before each
     timed call), then each held against its plain version, V4 and K4 beside
-    the bytes their copies read per image texel as the kernels count them.
+    the bytes their copies read per image texel as the kernels count them,
+    V3 also with two calls held equal bit for bit.
     Returns (launches, per-kernel cases)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     reset_counts()
@@ -2854,17 +2867,17 @@ def rotfused_split_phase() -> tuple[dict, dict]:
         for name in SPLIT:
             fn = getattr(rotfused, name)
             b, by = bound(plane * (n + 1), ops[name] * n * s * s)
-            cases[name].append(dict(
-                shape=f"({n},{s},{s})", ms=time_ms(lambda: fn(*args[name]), cold=True),
-                bound_ms=b, bound_by=by))
+            ms = time_ms(lambda: fn(*args[name]), cold=True)
+            cases[name].append(dict(shape=f"({n},{s},{s})", ms=ms, bound_ms=b,
+                                    bound_by=by, share=b / ms))
         b, by = bound(plane * (n + 3 * runs), ROT3_OPS * n * s * s)
         # K4 with delta 0 and with LARGE_DELTA as a tensor (the general path).
         for delta in (0.0, torch.tensor(LARGE_DELTA, device="cuda")):
+            ms = time_ms(lambda: rotate.rotate_planar_sum_fused(chans, base, delta),
+                         cold=True)
             cases["rotate_planar_sum_fused"].append(dict(
                 shape=f"3x({d},{s},{s}) runs {runs} delta {float(delta)}",
-                bound_ms=b, bound_by=by,
-                ms=time_ms(lambda: rotate.rotate_planar_sum_fused(chans, base, delta),
-                           cold=True)))
+                bound_ms=b, bound_by=by, share=b / ms, ms=ms))
         inputs.append((img, args, chans, base))
     torch.cuda.synchronize()
     launches = read_counts()
@@ -2897,6 +2910,11 @@ def rotfused_split_phase() -> tuple[dict, dict]:
                            rotfused.shear3_accum(*args["shear3_accum"])):
             raise AssertionError("shear3_accum: the counting launch differs")
         cases["shear3_accum"][i]["counted_bytes_per_texel"] = counts.item() / img.numel()
+        # V3 adds the warps' partials in a fixed order, as V4 does.
+        if not torch.equal(rotfused.shear1_accum(*args["shear1_accum"]),
+                           rotfused.shear1_accum(*args["shear1_accum"])):
+            raise AssertionError("shear1_accum: two calls differ")
+        cases["shear1_accum"][i]["repeat_equal_bits"] = True
         for j, delta in enumerate((0.0, torch.tensor(LARGE_DELTA, device="cuda"))):
             plain = lambda: rotate.rotate_planar_sum_fused_plain(chans, base, delta)
             got = rotate.rotate_planar_sum_fused(chans, base, delta)

@@ -39,16 +39,19 @@
 //       padded tile keeps the second one so. Same order of additions as V1:
 //       the two agree bit for bit. Rings of 4 or 8 stages, or two barriers
 //       an image, measured slower on an H100 80GB HBM3 at 700 W.
-//   V3: one thread per output texel, two taps of each image's row in image
-//       order (the lanes of a warp read one row, coalesced).
-//   V4: a block per row y, four warps each summing a contiguous quarter of
-//       the images (images [g * ceil(N/4), (g + 1) * ceil(N/4)) for warp g)
-//       in image order; the block adds the four partials in warp order,
-//       ((p0 + p1) + p2) + p3, so the sum order is fixed and two calls agree
-//       bit for bit. All three shears are along x, so each shift is uniform
-//       over the row: computed once a row and image, its floor j splits into
-//       a chunk offset j >> 2 and a float offset j & 3 (a template
-//       argument: the taps are fixed floats of each chunk pair). A warp
+//   V3 and V4: one kernel, templated on the number of shears (1 or 3). A
+//       block per row y, W warps each summing a contiguous range of the
+//       images (images [g * ceil(N/W), (g + 1) * ceil(N/W)) for warp g) in
+//       image order; the block adds the W partials in warp order,
+//       ((p0 + p1) + p2) + ..., so the sum order is fixed and two calls
+//       agree bit for bit. V4 takes W = 4; V3 chooses W from N
+//       (shear1_warps): with one shear a warp's work an image is its row's
+//       copy and one pass of taps, and a few images a warp leave the
+//       copies' latency exposed. All three shears are along x, so each
+//       shift is uniform over the row: computed once a row and image, its
+//       floor j splits into a chunk offset j >> 2 and a float offset j & 3
+//       (a template argument: the taps are fixed floats of each chunk
+//       pair). A warp
 //       keeps its next image's row in flight through a ring of two windows
 //       in shared memory, filled by 16-byte cp.async copies (4-byte ones
 //       where rows are not 16-byte aligned), each window the row shifted by
@@ -61,12 +64,11 @@
 //       shear's chunk offset, and the zero-outside rule is a valid chunk
 //       range, applied by predicates and selects (no branches). Only
 //       __syncwarp inside the image loop; one block barrier before the
-//       partials are added. S <= 1024. On an H100 80GB HBM3 at 700 W
-//       (chip_smoke.py, a one-row-a-block design before: 0.52 ms): 0.24 ms
-//       at (384, 640, 640), 79% of the bound; with the shears removed the
-//       copies alone take V1's 0.22 ms. A ring of three windows, eight or
-//       two warps a row, a separate window for the first shear's output and
-//       per-chunk branches all measured slower there.
+//       partials are added. S <= 1024: a window stages one whole row.
+//       V3 runs only the last step, the shear by alpha from the staged
+//       window into registers. For V4 a ring of three windows, eight or two
+//       warps a row, a separate window for the first shear's output and
+//       per-chunk branches all measured slower (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 
@@ -79,7 +81,8 @@ constexpr int kRows = litbox::kRingRows;  // threads per tile column in V2
 constexpr int kStages = 6;        // V2's ring: 5 images' tiles in flight a block
 constexpr int kThreads = 256;
 constexpr int kV4Warps = 4;   // V4: warps a row, each summing a quarter of the images
-constexpr int kV4Ring = 2;    // V4: staged rows a warp, one in flight while one is sheared
+constexpr int kMaxRowWarps = 16;  // V3: warps a row at most
+constexpr int kV4Ring = 2;    // staged rows a warp, one in flight while one is sheared
 constexpr int kV4MaxS = 1024;
 
 __global__ void __launch_bounds__(kThreads)
@@ -160,36 +163,10 @@ transpose2_accum_kernel(const float* __restrict__ img, float* __restrict__ out, 
   }
 }
 
-__device__ __forceinline__ float lerp_taps(float a, float b, float f) {
-  return a * (1.f - f) + b * f;
-}
-
-__global__ void __launch_bounds__(kThreads)
-shear1_accum_kernel(const float* __restrict__ img, const float* __restrict__ alpha,
-                    float* __restrict__ out, int n, int s) {
-  const int x = blockIdx.x * kThreads + threadIdx.x;
-  const int y = blockIdx.y;
-  if (x >= s) return;
-  const float yc = (float)y + 0.5f - 0.5f * (float)s;
-  float acc = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < n; ++d) {
-    const float sh = __ldg(alpha + d) * yc;
-    const float fi = floorf(sh);
-    const int x0 = x + (int)fi;
-    const float f = sh - fi;
-    const float* row = img + ((size_t)d * s + y) * s;
-    const float v0 = (x0 >= 0 && x0 < s) ? __ldg(row + x0) : 0.f;
-    const float v1 = (x0 + 1 >= 0 && x0 + 1 < s) ? __ldg(row + x0 + 1) : 0.f;
-    acc += lerp_taps(v0, v1, f);
-  }
-  out[(size_t)y * s + x] = acc;
-}
-
-struct V4Args {
+struct ShearArgs {
   const float* img;
   const float* alpha;
-  const float* beta;
+  const float* beta;  // V4 only
   float* out;
   int n, s;
   int chunks;  // C = ceil(S / 4): 16-byte chunks a row
@@ -210,7 +187,7 @@ __device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.
 // range checks are predicates and selects.
 template <int L, int kK, bool kVec>
 __device__ __forceinline__ void shear_window(float4* win, int q, float f, int lane,
-                                             const V4Args& p) {
+                                             const ShearArgs& p) {
   const int w0 = L * lane;
   float4 v[L + 2];
 #pragma unroll
@@ -241,7 +218,7 @@ __device__ __forceinline__ void shear_window(float4* win, int q, float f, int la
 // The last x-shear of a warp's window, added to the lane's L output chunks.
 template <int L, int kK>
 __device__ __forceinline__ void shear_add(const float4* src, float4* acc, float f, int lane,
-                                          const V4Args& p) {
+                                          const ShearArgs& p) {
   const int w0 = L * lane;
   float4 v[L + 1];
 #pragma unroll
@@ -256,7 +233,7 @@ __device__ __forceinline__ void shear_add(const float4* src, float4* acc, float 
 
 template <int L, bool kVec>
 __device__ __forceinline__ void shear_window_k(int k, float4* win, int q, float f, int lane,
-                                               const V4Args& p) {
+                                               const ShearArgs& p) {
   switch (k) {  // warp-uniform
     case 0: shear_window<L, 0, kVec>(win, q, f, lane, p); break;
     case 1: shear_window<L, 1, kVec>(win, q, f, lane, p); break;
@@ -267,7 +244,7 @@ __device__ __forceinline__ void shear_window_k(int k, float4* win, int q, float 
 
 template <int L>
 __device__ __forceinline__ void shear_add_k(int k, const float4* src, float4* acc, float f,
-                                            int lane, const V4Args& p) {
+                                            int lane, const ShearArgs& p) {
   switch (k) {
     case 0: shear_add<L, 0>(src, acc, f, lane, p); break;
     case 1: shear_add<L, 1>(src, acc, f, lane, p); break;
@@ -281,7 +258,7 @@ __device__ __forceinline__ void shear_add_k(int k, const float4* src, float4* ac
 // read from the row (zero-fills read none).
 template <bool kVec>
 __device__ __forceinline__ int stage_row(float4* win, const float* row, int q, int lane,
-                                         const V4Args& p) {
+                                         const ShearArgs& p) {
   int bytes = 0;
   if (kVec) {
     for (int w = lane; w < p.window; w += 32) {
@@ -302,20 +279,25 @@ __device__ __forceinline__ int stage_row(float4* win, const float* row, int q, i
   return bytes;
 }
 
-// out[y] = sum_d X_a(X_b(X_a(img[d])))[y]: a block per row y; see the design
+// out[y] = sum_d X_a(X_b(X_a(img[d])))[y] (kShears 3, V4) or
+// sum_d X_a(img[d])[y] (kShears 1, V3): a block per row y; see the design
 // note. Shared memory: per warp kV4Ring windows of C + 1 chunks.
-template <bool kVec, int L, bool kStats>
-__global__ void __launch_bounds__(32 * kV4Warps) shear3_accum_kernel(V4Args p) {
+template <int kShears, bool kVec, int L, bool kStats>
+__global__ void __launch_bounds__(kShears == 3 ? 32 * kV4Warps : 32 * kMaxRowWarps)
+shear_accum_kernel(ShearArgs p) {
   extern __shared__ float4 smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = kShears == 3 ? kV4Warps : blockDim.x >> 5;
   const int y = blockIdx.x;
-  const int per = (p.n + kV4Warps - 1) / kV4Warps;
+  const int per = (p.n + warps - 1) / warps;
   const int lo = min(p.n, warp * per), cnt = min(p.n, lo + per) - lo;
   const float rc = litbox::offset_of(y, p.center);
   const size_t plane = (size_t)p.s * p.s;
   const float* row0 = p.img + (size_t)lo * plane + (size_t)y * p.s;
   float4* ring = smem + (size_t)warp * kV4Ring * p.window;
-  litbox::Coefs alphas(p.alpha + lo, cnt, lane), betas(p.beta + lo, cnt, lane);
+  litbox::Coefs alphas(p.alpha + lo, cnt, lane);
+  // V3 reads no beta: a Coefs of no coefficients loads nothing.
+  litbox::Coefs betas(kShears == 3 ? p.beta + lo : p.alpha, kShears == 3 ? cnt : 0, lane);
 
   // taps[i]: the first (and last) shear's shift of image k + i, whose row
   // is staged or in flight.
@@ -343,12 +325,14 @@ __global__ void __launch_bounds__(32 * kV4Warps) shear3_accum_kernel(V4Args p) {
     for (int i = 0; i + 1 < kV4Ring - 1; ++i) taps[i] = taps[i + 1];
     if (k + kV4Ring - 1 < cnt) taps[kV4Ring - 2] = issue(k + kV4Ring - 1);
     litbox::cp_async_commit();
-    const litbox::Shift tb = litbox::shift_of(betas.at(k, lane), rc, p.lim);
     float4* win = ring + (k % kV4Ring) * p.window;
-    shear_window_k<L, kVec>(ta.j & 3, win, tb.j >> 2, ta.f, lane, p);
-    __syncwarp();
-    shear_window_k<L, kVec>(tb.j & 3, win, ta.j >> 2, tb.f, lane, p);
-    __syncwarp();
+    if (kShears == 3) {
+      const litbox::Shift tb = litbox::shift_of(betas.at(k, lane), rc, p.lim);
+      shear_window_k<L, kVec>(ta.j & 3, win, tb.j >> 2, ta.f, lane, p);
+      __syncwarp();
+      shear_window_k<L, kVec>(tb.j & 3, win, ta.j >> 2, tb.f, lane, p);
+      __syncwarp();
+    }
     shear_add_k<L>(ta.j & 3, win, acc, ta.f, lane, p);
   }
   // The warps' partials, added in warp order.
@@ -360,39 +344,69 @@ __global__ void __launch_bounds__(32 * kV4Warps) shear3_accum_kernel(V4Args p) {
   __syncthreads();
   const float* part = reinterpret_cast<const float*>(smem);
   const size_t stride = (size_t)kV4Ring * p.window * 4;  // floats between partials
-  for (int x = threadIdx.x; x < p.s; x += 32 * kV4Warps) {
+  for (int x = threadIdx.x; x < p.s; x += blockDim.x) {
     float sum = part[x];
-#pragma unroll
-    for (int g = 1; g < kV4Warps; ++g) sum = __fadd_rn(sum, part[g * stride + x]);
+#pragma unroll 4
+    for (int g = 1; g < warps; ++g) sum = __fadd_rn(sum, part[g * stride + x]);
     p.out[(size_t)y * p.s + x] = sum;
   }
   if (kStats) litbox::count_add(p.counts, copied);
 }
 
-template <bool kVec, int L>
-int launch_shear3(const V4Args& p, cudaStream_t stream) {
-  const size_t smem = (size_t)kV4Warps * kV4Ring * p.window * sizeof(float4);
-  const auto kernel = p.counts ? shear3_accum_kernel<kVec, L, true>
-                               : shear3_accum_kernel<kVec, L, false>;
+template <int kShears, bool kVec, int L>
+int launch_shears(const ShearArgs& p, int warps, cudaStream_t stream) {
+  const size_t smem = (size_t)warps * kV4Ring * p.window * sizeof(float4);
+  const auto kernel = p.counts ? shear_accum_kernel<kShears, kVec, L, true>
+                               : shear_accum_kernel<kShears, kVec, L, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<(unsigned)p.s, 32 * kV4Warps, smem, stream>>>(p);
+  kernel<<<(unsigned)p.s, 32 * warps, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <bool kVec>
-int launch_shear3_vec(const V4Args& p, cudaStream_t stream) {
+template <int kShears, bool kVec>
+int launch_shears_vec(const ShearArgs& p, int warps, cudaStream_t stream) {
   // L: the least odd number with 32 L >= C.
   switch (((p.chunks + 31) / 32) | 1) {
-    case 1: return launch_shear3<kVec, 1>(p, stream);
-    case 3: return launch_shear3<kVec, 3>(p, stream);
-    case 5: return launch_shear3<kVec, 5>(p, stream);
-    case 7: return launch_shear3<kVec, 7>(p, stream);
-    default: return launch_shear3<kVec, 9>(p, stream);
+    case 1: return launch_shears<kShears, kVec, 1>(p, warps, stream);
+    case 3: return launch_shears<kShears, kVec, 3>(p, warps, stream);
+    case 5: return launch_shears<kShears, kVec, 5>(p, warps, stream);
+    case 7: return launch_shears<kShears, kVec, 7>(p, warps, stream);
+    default: return launch_shears<kShears, kVec, 9>(p, warps, stream);
   }
+}
+
+template <int kShears>
+int launch_shears_for(const float* img, const float* alpha, const float* beta, float* out,
+                      int n, int s, int warps, unsigned long long* counts,
+                      cudaStream_t stream) {
+  ShearArgs p;
+  p.img = img;
+  p.alpha = alpha;
+  p.beta = beta;
+  p.out = out;
+  p.n = n;
+  p.s = s;
+  p.chunks = (s + 3) / 4;
+  p.window = p.chunks + 1;
+  p.center = s / 2.0f;
+  p.lim = (float)(s + 2);
+  p.counts = counts;
+  if (s % 4 == 0 && litbox::aligned16(img))
+    return launch_shears_vec<kShears, true>(p, warps, stream);
+  return launch_shears_vec<kShears, false>(p, warps, stream);
+}
+
+// V3's warps a row for N images: two images a warp, from 4 to 16 warps, up
+// to 32 images, so that a small N still keeps several rows' copies in
+// flight a block; V4's four beyond, where a block of 16 warps (82 KB of
+// windows at S=640) leaves room for only two blocks an SM.
+int shear1_warps(int n) {
+  if (n > 32) return kV4Warps;
+  return max(kV4Warps, min(kMaxRowWarps, (n + 1) / 2));
 }
 
 }  // namespace
@@ -425,13 +439,13 @@ extern "C" int litbox_prof_transpose2_accum(const float* img, float* out, int n,
   return (int)cudaGetLastError();
 }
 
+// s <= 1024; any s, as V4.
 extern "C" int litbox_prof_shear1_accum(const float* img, const float* alpha,
                                         float* out, int n, int s, void* stream) {
-  if (s > 0) {
-    const dim3 grid((unsigned)((s + kThreads - 1) / kThreads), (unsigned)s);
-    shear1_accum_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(img, alpha, out, n, s);
-  }
-  return (int)cudaGetLastError();
+  if (s > kV4MaxS || n < 0) return (int)cudaErrorInvalidValue;
+  if (s == 0) return (int)cudaGetLastError();
+  return launch_shears_for<1>(img, alpha, nullptr, out, n, s, shear1_warps(n), nullptr,
+                              (cudaStream_t)stream);
 }
 
 // s <= 1024; any s: 16-byte copies where s % 4 == 0 and img is 16-byte
@@ -443,19 +457,6 @@ extern "C" int litbox_prof_shear3_accum(const float* img, const float* alpha,
                                         int s, unsigned long long* counts, void* stream) {
   if (s > kV4MaxS || n < 0) return (int)cudaErrorInvalidValue;
   if (s == 0) return (int)cudaGetLastError();
-  V4Args p;
-  p.img = img;
-  p.alpha = alpha;
-  p.beta = beta;
-  p.out = out;
-  p.n = n;
-  p.s = s;
-  p.chunks = (s + 3) / 4;
-  p.window = p.chunks + 1;
-  p.center = s / 2.0f;
-  p.lim = (float)(s + 2);
-  p.counts = counts;
-  if (s % 4 == 0 && litbox::aligned16(img))
-    return launch_shear3_vec<true>(p, (cudaStream_t)stream);
-  return launch_shear3_vec<false>(p, (cudaStream_t)stream);
+  return launch_shears_for<3>(img, alpha, beta, out, n, s, kV4Warps, counts,
+                              (cudaStream_t)stream);
 }

@@ -6,10 +6,13 @@ in one pass,
     O[x] = t[x] * O[x-1] + src[x] * sqrt(t[x]),   O[-1] = 0.
 
 Replaces the Pallas kernel `litbox_tpu/ops/attnscan.py::attenuation_scan_rows`
-(pallas_call at :97). The CUDA kernel is `csrc/attnscan.cu`: one warp per
-(bin, row), a shuffle scan over 32-column chunks with the carry passed from
-chunk to chunk. It is bound by bytes: 7 planes of (D/n_groups) * S * S
-float32 (528 MB at D=128, S=384; 0.16 ms at the H100's 3.35 TB/s).
+(pallas_call at :97). The CUDA kernel is `csrc/attnscan.cu`: a row split
+over the warps of a block, 128 columns a warp and 4 a thread, every load of
+the row (float4) issued before any carry is known; each warp scans its
+lanes' composed maps with shuffles, and the warps' aggregates meet in
+shared memory in a fixed order. It is bound by bytes: 7 planes of
+(D/n_groups) * S * S float32 (528 MB at D=128, S=384; 0.16 ms at the H100's
+3.35 TB/s).
 
 A CPU tensor takes the plain PyTorch version below; a CUDA tensor takes the
 kernel or the call raises.

@@ -34,6 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "litbox_attnscan_rows": [_P] * 7 + [_I] * 6 + [_P],
+    "litbox_attnscan_empty": [_I] * 3 + [_P],
     "litbox_shear": [_P] * 3 + [_I] * 6 + [_P],
     "litbox_shear_reduce": [_P] * 3 + [_I] * 9 + [_P],
     "litbox_rot3sum": [_P] * 4 + [_I] * 4 + [_P] * 3,

@@ -6,11 +6,13 @@ counterpart of JAX's SPMD launch: it starts the ranks, joins them and
 returns what each returned. Every rank calls the parallel functions with
 its own local block.
 
-    results = world.run(fn, 4, arg)              # gloo on the CPU
-    results = world.run(fn, n, arg, device="cuda")  # NCCL, rank r on cuda:r
+    results = world.run(fn, n, arg)                # NCCL, rank r on cuda:r
+    results = world.run(fn, 4, arg, device="cpu")  # gloo on the CPU
 
+The device is "cuda" by default, as for every entry point of the port.
 The backend is gloo on the CPU and NCCL on CUDA; there is no fallback from
-one to the other. Ranks rendezvous through a `file://` store in a fresh
+one to the other: a world on "cuda" needs a visible card a rank, or `run`
+raises before it starts any. Ranks rendezvous through a `file://` store in a fresh
 temporary directory, so that concurrent worlds never compete for a port.
 `init_process_group` and the join both have a timeout, so a hung
 collective fails the call instead of hanging it.
@@ -54,7 +56,7 @@ def rank_device() -> torch.device:
     return torch.device("cpu")
 
 
-def init(rank: int, world_size: int, store: str, device: str = "cpu",
+def init(rank: int, world_size: int, store: str, device: str = "cuda",
          timeout: float = DEFAULT_TIMEOUT) -> None:
     """Join the world as `rank` through the file store at `store`. On CUDA
     the rank's card becomes the current device first, so the kernels'
@@ -85,7 +87,7 @@ def _child(fn, rank, world_size, store, device, timeout, out_dir) -> None:
         raise SystemExit(1)
 
 
-def run(fn, world_size: int, *args, device: str = "cpu",
+def run(fn, world_size: int, *args, device: str = "cuda",
         timeout: float = DEFAULT_TIMEOUT, inline_rank0: bool = False) -> list:
     """Run fn(*args) on `world_size` ranks; returns each rank's result, by
     rank.
@@ -96,10 +98,16 @@ def run(fn, world_size: int, *args, device: str = "cpu",
     this process's counters) and only ranks 1.. are spawned. Raises
     RuntimeError with the failing ranks' tracebacks, or TimeoutError when a
     rank has not ended `timeout` seconds after the start; every process it
-    started has ended when it returns or raises."""
+    started has ended when it returns or raises. On "cuda" with fewer
+    visible cards than ranks it raises RuntimeError and starts none."""
     if world_size < 1:
         raise ValueError(f"world_size must be >= 1, got {world_size}")
-    backend_for(device)
+    if backend_for(device) == "nccl":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if cards < world_size:
+            raise RuntimeError(f"a world of {world_size} ranks on {device!r} needs "
+                               f"{world_size} CUDA devices, {cards} visible "
+                               "(device='cpu' runs the ranks on the host with gloo)")
     tmp = Path(tempfile.mkdtemp(prefix="litbox_world_"))
     store = str(tmp / "store")
     ctx = multiprocessing.get_context("spawn")

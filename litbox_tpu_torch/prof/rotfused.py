@@ -7,6 +7,8 @@ variants, each summing N float32 (S, S) images into one (S, S) plane
     V3 shear1_accum      sum_d X_alpha[d](img[d])           one shear's 2 taps
     V4 shear3_accum      sum_d X_a(X_b(X_a(img[d])))        three shears, no transposes
 
+V3 and V4 are one kernel, templated on the number of shears.
+
 X_c shifts row y by c * (y + 0.5 - S/2) texels with a two-tap lerp, zero
 outside the image (`ops.rotate.shear` with row_div = elem_scale = 1). The
 kernels are CUDA C++ in `csrc/prof_rotfused.cu`, built into the port's one
@@ -98,10 +100,17 @@ transpose2_accum.launches = 0
 
 
 def shear1_accum(img: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """V3: one x-shear of every image by alpha[d], summed."""
+    """V3: one x-shear of every image by alpha[d], summed (S <= 1024, the
+    widest row a window stages, as V4). V4's kernel with its last shear
+    only: a block per row, its warps each summing a contiguous range of the
+    images in order through a ring of two cp.async windows, the partials
+    added in warp order (two calls agree bit for bit). The kernel chooses
+    the warps a row from N."""
     if cuda_lib.on_cpu(img, alpha):
         return shear1_accum_plain(img, alpha)
     n, s, out, stream = _prepare("shear1_accum", img, alpha)
+    if s > 1024:
+        raise ValueError(f"shear1_accum stages a row of at most 1024, got S={s}")
     cuda_lib.check(cuda_lib.library().litbox_prof_shear1_accum(
         img.data_ptr(), alpha.data_ptr(), out.data_ptr(), n, s, stream),
         "shear1_accum")

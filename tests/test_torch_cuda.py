@@ -48,6 +48,48 @@ def test_scan_kernel_matches_plain(dev, width, group, n_groups, tracers):
         torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
 
 
+def _unaligned(x):
+    """x as a view one float into a buffer: not 16-byte aligned."""
+    buf = torch.empty(x.numel() + 1, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
+
+
+# (bins, rows, width, group, n_groups, tracers, t range, layout). Widths
+# around the kernel's 4-column threads and 128-column warps (1, 31, 127,
+# 128, 129, 200), the frame's (640, 1024) and one past a block's 1024-column
+# span (2056: three spans); odd widths have rows that are not 16-byte
+# aligned, and "unaligned" puts every plane one float off at width 128.
+# Five rows leave a block of rows partly empty. Then group 15 of 16 of a
+# two-tracer source, and the collimated one-bin (1, 1024, 1024) with t near
+# 1 (carries that last across every warp) and near 0.3.
+SCAN_EDGES = ([(3, 5, w, 0, 1, 1, (0.3, 1.0), "aligned")
+               for w in (1, 31, 127, 128, 129, 200, 640, 1024, 2056)]
+              + [(3, 5, 128, 0, 1, 1, (0.3, 1.0), "unaligned"),
+                 (32, 4, 96, 15, 16, 2, (0.3, 1.0), "aligned"),
+                 (1, 1024, 1024, 0, 1, 1, (0.99, 1.0), "aligned"),
+                 (1, 1024, 1024, 0, 1, 1, (0.3, 0.31), "aligned")])
+
+
+@pytest.mark.parametrize("d,rows,width,group,n_groups,tracers,t_range,layout", SCAN_EDGES)
+def test_scan_kernel_edges(dev, d, rows, width, group, n_groups, tracers, t_range, layout):
+    """K1 at its edges against its plain version, within 1e-5 of the
+    largest magnitude."""
+    t = _rand(dev, 60, (d, rows, width), *t_range)
+    srcs = [_rand(dev, 61 + c, (tracers * d, rows, width)) for c in range(3)]
+    if layout == "unaligned":
+        t, srcs = _unaligned(t), [_unaligned(x) for x in srcs]
+    args = dict(group=group, n_groups=n_groups, src_offset=(tracers - 1) * d)
+    before = attnscan.attenuation_scan_rows.launches
+    got = attnscan.attenuation_scan_rows(t, *srcs, **args)
+    torch.cuda.synchronize()
+    assert attnscan.attenuation_scan_rows.launches == before + 1
+    ref = attnscan.attenuation_scan_rows_plain(t, *srcs, **args)
+    scale = max(float(r.abs().max()) for r in ref)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape == (d // n_groups, rows, width)
+        torch.testing.assert_close(g, r, atol=1e-5 * scale, rtol=0)
+
+
 def _images(dev, seed, n, rows, width, layout):
     """(n, rows, width) contiguous images: "aligned" from torch; "slice" as
     img[1:] of n + 1 images (one float off 16-byte alignment when
@@ -240,6 +282,26 @@ def test_shear3_accum_kernel_edges(dev, n, s, spread):
     torch.testing.assert_close(got, ref, atol=2e-5 * float(ref.abs().max()), rtol=0)
 
 
+@pytest.mark.parametrize("n,s,spread", [(1, 97, 0.8), (13, 97, 0.8), (1, 1024, 0.8),
+                                        (13, 1024, 0.8), (37, 640, 0.8), (24, 640, 0.8),
+                                        (13, 128, 3.0)])
+def test_shear1_accum_kernel_edges(dev, n, s, spread):
+    """V3 on V4's kernel at its edges: one image, N not a multiple of the
+    warps a row (13, 37), rows that are not 16-byte aligned (97), the
+    largest S, the group shape, and shifts past the row. Held to its plain
+    version at 2e-5 of the largest magnitude; two calls give equal bits."""
+    img = _rand(dev, 35, (n, s, s))
+    alpha = -torch.tan(_rand(dev, 36, (n,), -spread, spread) / 2)
+    before = rotfused.shear1_accum.launches
+    got = rotfused.shear1_accum(img, alpha)
+    again = rotfused.shear1_accum(img, alpha)
+    torch.cuda.synchronize()
+    assert rotfused.shear1_accum.launches == before + 2
+    assert torch.equal(got, again)
+    ref = rotfused.shear1_accum_plain(img, alpha)
+    torch.testing.assert_close(got, ref, atol=2e-5 * float(ref.abs().max()), rtol=0)
+
+
 @pytest.mark.parametrize("delta", [0.0, 1.2])
 def test_rotate_planar_sum_fused_counts(dev, delta):
     """K4's counting launch gives the plain launch's bits and counts every
@@ -389,9 +451,11 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         rotfused.transpose2_accum(img[:, :8].contiguous())
     with pytest.raises(ValueError):                         # not (N, S, S)
         rotfused.transpose2_accum(img[0])
+    big = torch.zeros((1, 1025, 1025), device=dev)
     with pytest.raises(ValueError):                         # V4 stages S <= 1024
-        big = torch.zeros((1, 1025, 1025), device=dev)
         rotfused.shear3_accum(big, coef[:1], coef[:1])
+    with pytest.raises(ValueError):                         # and so does V3
+        rotfused.shear1_accum(big, coef[:1])
 
 
 def test_resolve_on_card_matches_cpu(dev):

@@ -25,6 +25,8 @@ is held to JAX's CPU function (whose dense rotate folds the phase in) at
 phase 0 only (ROADMAP C8)."""
 
 import dataclasses
+import inspect
+import multiprocessing
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -105,7 +107,8 @@ def _port_world(jax_fields):
     case = dict(resolve_fields={"p0": trees["p0"], "p3": trees["p3"]},
                 rbt_fields=trees["p0"], bins_fields=trees["bins"])
     with ThreadPoolExecutor(max_workers=1) as pool:
-        yield pool.submit(world.run, ranks.sim_cases, 8, case, timeout=600)
+        yield pool.submit(world.run, ranks.sim_cases, 8, case, device="cpu",
+                          timeout=600)
 
 
 @pytest.fixture(scope="module")
@@ -534,7 +537,20 @@ def test_world_stops_at_a_failing_rank():
     """A rank that raises ends the run with its traceback, while the other
     rank waits at a barrier it never leaves."""
     with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
-        world.run(ranks.fail_on_rank, 2, 1, timeout=120)
+        world.run(ranks.fail_on_rank, 2, 1, device="cpu", timeout=120)
+
+
+def test_world_runs_on_the_card_by_default(monkeypatch):
+    """world.run and world.init default to "cuda" (NCCL), as every entry
+    point of the port does. With no card visible a call with the default
+    raises before it starts a rank: there is no fallback to gloo."""
+    for fn in (world.run, world.init):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = set(multiprocessing.active_children())
+    with pytest.raises(RuntimeError, match="CUDA devices, 0 visible"):
+        world.run(ranks.fail_on_rank, 1, 0)
+    assert set(multiprocessing.active_children()) <= before
 
 
 def test_parallel_imports_without_jax():

@@ -73,7 +73,7 @@ def jax_step():
 def port(jax_step):
     """Rank 0's results of ranks.train_cases in a world of 4."""
     case = {k: jax_step[k] for k in ("inputs", "targets", "variables")}
-    return world.run(ranks.train_cases, 4, case, timeout=600)[0]
+    return world.run(ranks.train_cases, 4, case, device="cpu", timeout=600)[0]
 
 
 def _close_tree(got: dict, want: dict, what: str) -> None:
