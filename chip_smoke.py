@@ -40,7 +40,8 @@ and runs thirteen phases, each printed with its wall seconds:
   D=128 on bench_1080p.py's scene, with the shipped net's shape (RGB, size
   4, 16 features) and bf16 weights from a fixed seed: 1 warm frame, 32
   timed frames (ms per displayed frame, photons/s, peak memory), 16 frames
-  with CUDA events between the stages, 8 frames beside a float32 display of
+  timed by the card at the edges of their stage spans (core/spans.py at
+  level 2), 8 frames beside a float32 display of
   the same frames (the bf16 display held within BF16_DISPLAY_TOL of it),
   8 frames under torch's sync debug mode (none may make the host wait),
   resolve_raw against K1 + K4 at the group shape, and the frame's checks.
@@ -48,8 +49,11 @@ and runs thirteen phases, each printed with its wall seconds:
   at 256^2 with 65,536 photons a tracer, in six configurations: reference
   (engine "rbt", 32 steps, a convergence measure every 8) and paired
   ("rbt-paired"): ms a step, photons/s, the first output read, host syncs
-  over 9 steps of a second run, peak memory; collimated (a laser and a
-  directional light added): the per-scene precompute's ms and
+  over 9 steps of a second run, peak memory, and steps 2-9 of a third run
+  timed at the edges of its `sim.*` spans (core/spans.py at level 2): the
+  host's ms of sim.step, sim.trace and sim.measure against the card's, and
+  how far the card lags the host at each span's end; collimated (a laser
+  and a directional light added): the per-scene precompute's ms and
   collimated_direct_raw held against the same composition through the
   plain versions on the card, the exact field's HDR in vacuum, 8 steps;
   realtime (jitter ladder, 16 display groups, a display read a step);
@@ -201,7 +205,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from litbox_tpu_torch import convert, native, parallel
-from litbox_tpu_torch.core import luts
+from litbox_tpu_torch.core import luts, spans
 from litbox_tpu_torch.core.types import REALTIME_1080P, SimulationProfile
 from litbox_tpu_torch.data import factory as data_factory
 from litbox_tpu_torch.data import sessions, substrate
@@ -1137,7 +1141,7 @@ def fused_resolve_phase(fields, src, height: int, width: int) -> dict:
 
 
 PROD_FRAMES = 32       # timed frames of the shipped frame, after 1 warm frame
-PROD_STAGE_FRAMES = 16  # frames with CUDA events between the stages
+PROD_STAGE_FRAMES = 16  # frames timed at the edges of their stage spans (spans.enable)
 PROD_F32_FRAMES = 8    # frames beside a float32 display of the same frames
 PROD_SYNC_FRAMES = 8   # frames under torch's sync debug mode
 # The bf16 display's largest and mean deviation from a float32 display of
@@ -1204,21 +1208,20 @@ def production_phase() -> dict:
     # calibration display among them).
     syncs = host_syncs(lambda: [step(state, gen) for _ in range(PROD_SYNC_FRAMES)])
 
-    # Stage times: CUDA events at the step's stage marks.
+    # Stage times: the card's times at the edges of the frame's stage spans.
     stage_ms = {name: [] for name in PROD_STAGES}
+    spans.enable()
     for _ in range(PROD_STAGE_FRAMES):
-        events = [("start", torch.cuda.Event(enable_timing=True))]
-        events[0][1].record()
-
-        def mark(name, events=events):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append((name, ev))
-
-        step(state, gen, mark)
-        events[-1][1].synchronize()
-        for (_, a), (name, b) in zip(events, events[1:]):
-            stage_ms[name].append(a.elapsed_time(b))
+        step(state, gen)
+        torch.cuda.synchronize()  # each frame alone, as the stage times always were
+    spans.timeline()
+    spans.disable()
+    frames = [r for r in spans.step_records() if r.kind == "frame.step"]
+    for record in frames[-PROD_STAGE_FRAMES:]:
+        for s in record.spans:
+            stage = s.name.removeprefix("frame.")
+            if stage in stage_ms:
+                stage_ms[stage].append((s.device_end_ns - s.device_start_ns) * 1e-6)
     stage_median = {k: statistics.median(v) for k, v in stage_ms.items() if v}
     stage_median["flush_amortized"] = sum(stage_ms["flush"]) / PROD_STAGE_FRAMES
 
@@ -1327,6 +1330,7 @@ SIM_SHORT_STEPS = 8    # steps of the collimated run
 SIM_REALTIME_STEPS = 16
 SIM_AI_STEPS = 4
 SIM_ORACLE_FRAMES = 2
+SIM_SPAN_STEPS = 8     # steps 2-9, timed at the edges of their sim.* spans (spans.enable)
 # collimated_direct_raw against the same composition through the plain
 # versions, relative to its maximum: float32 roundings of one scan and three
 # shears.
@@ -1409,7 +1413,8 @@ def flax_tree(arch: dict, seed: int) -> dict:
 def _timed_steps(sim, n: int) -> tuple[float, float]:
     """(ms of the first step, ms per step of the next n - 1), host clock,
     each span ended by a synchronize; photons/s from the simulation's own
-    counters over the later steps."""
+    counters over the later steps (its events after the first step and
+    after the last, both completed by the card before the last read)."""
     t0 = time.perf_counter()
     sim.step()
     torch.cuda.synchronize()
@@ -1420,6 +1425,8 @@ def _timed_steps(sim, n: int) -> tuple[float, float]:
     torch.cuda.synchronize()
     sim.update_performance_metrics()
     t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    sim.update_performance_metrics()
     return (t1 - t0) * 1e3, (t2 - t1) / max(1, n - 1) * 1e3
 
 
@@ -1445,6 +1452,34 @@ def _sync_record(first: list, later: list) -> dict:
     return dict(first_step=len(first), later_steps=SIM_SYNC_STEPS - 1,
                 later_count=len(later), later_per_step=len(later) / (SIM_SYNC_STEPS - 1),
                 first_sites=sorted(set(first)), later_sites=sorted(set(later)))
+
+
+def _span_split(sim, n: int) -> dict:
+    """One step of `sim` (the per-scene reads), then n steps under
+    spans.enable() (README_SIM measures the convergence at step 8): for each
+    of sim.step, sim.trace and sim.measure, how many closed and the medians
+    of its host ms, of the card's ms between its edges, and of how far the
+    card reached its end after the host left it (lag_ms: near 0 where the
+    card waits for the host's issue, the card's backlog where it does not)."""
+    sim.step()
+    torch.cuda.synchronize()
+    spans.enable()
+    for _ in range(n):
+        sim.step()
+    spans.timeline()
+    spans.disable()
+    records = [r for r in spans.step_records() if r.kind == "sim.step"][-n:]
+    out = {}
+    for name in ("sim.step", "sim.trace", "sim.measure"):
+        got = [s for r in records for s in r.spans if s.name == name]
+        if got:
+            out[name] = dict(
+                n=len(got),
+                host_ms=statistics.median((s.end_ns - s.start_ns) * 1e-6 for s in got),
+                device_ms=statistics.median((s.device_end_ns - s.device_start_ns) * 1e-6
+                                            for s in got),
+                lag_ms=statistics.median((s.device_end_ns - s.end_ns) * 1e-6 for s in got))
+    return out
 
 
 def _reference_run(engine: str, scene, failures: list) -> dict:
@@ -1473,6 +1508,9 @@ def _reference_run(engine: str, scene, failures: list) -> dict:
     sync_sim.set_scene(scene)
     first = host_syncs(sync_sim.step)
     later = host_syncs(lambda: [sync_sim.step() for _ in range(SIM_SYNC_STEPS - 1)])
+    split_sim = Simulation(engine=engine, seed=2, **README_SIM)
+    split_sim.set_scene(scene)
+    split = _span_split(split_sim, SIM_SPAN_STEPS)
     return dict(engine=engine, steps=sim.iterations_since_clear,
                 first_step_ms=first_ms, ms_per_step=ms_per_step,
                 photons_per_second=sim.photons_per_second,
@@ -1480,7 +1518,7 @@ def _reference_run(engine: str, scene, failures: list) -> dict:
                 convergence_progress=sim.convergence_progress,
                 photon_counts=counts, tracer_energy=energy, tracer_energy_rel=energy_rel,
                 tracers_differ=differ, hdr_mean=float(hdr.mean()),
-                host_syncs=_sync_record(first, later),
+                host_syncs=_sync_record(first, later), span_split=split,
                 peak_memory_bytes=peak, launches=launches)
 
 

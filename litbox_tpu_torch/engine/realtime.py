@@ -24,16 +24,20 @@ The frame runs eagerly (no CUDA graph). The frame index is kept twice: `r`
 on the device, as the JAX carry (it divides the HDR), and `frame` on the
 host, which selects the slot, the group and the display branch without
 reading the device.
+
+A frame is the step span `frame.step` (core/spans.py) around one span a
+stage: `frame.deposits`, `frame.flush`, `frame.resolve`,
+`frame.display_cal` or `frame.display_fast`, and `frame.upsample_tonemap`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
 
 import torch
 import torch.nn.functional as F
 
+from ..core import spans
 from ..core.types import REALTIME_1080P, Realtime1080pProfile
 from ..nn.unet import LitboxDenoiserNet, TransformConfig
 from ..post.tonemap import UchimuraShape, tonemap_uchimura
@@ -101,11 +105,9 @@ def make_pair_frame_step(gbuffer, lights, field_textures, brdf_lut,
 
     Returns (init_state, step):
       init_state() -> PairFrameState, zeroed, with k_prev = 0.5 and r = 0;
-      step(state, generator, mark=None) -> (display (OUT_H, OUT_W, 3) in the
-        net's dtype, k) runs one frame and advances the state in place.
-        `mark(name)`, when given, is called after each stage ("deposits",
-        "flush", "resolve", "display_cal" or "display_fast",
-        "upsample_tonemap"), e.g. to record CUDA events.
+      step(state, generator) -> (display (OUT_H, OUT_W, 3) in the net's
+        dtype, k) runs one frame and advances the state in place; each
+        stage is a span (the module's docstring).
 
     model_variables is the display net's state_dict (see `display_weights`),
     moved once to the fields' device; `net` is its architecture and
@@ -139,39 +141,41 @@ def make_pair_frame_step(gbuffer, lights, field_textures, brdf_lut,
             k_prev=torch.tensor(0.5, device=dev),
             r=torch.zeros((), dtype=torch.int32, device=dev), frame=0)
 
-    def step(state: PairFrameState, generator: torch.Generator,
-             mark: Callable[[str], None] | None = None):
-        mark = mark or (lambda _: None)
+    def step(state: PairFrameState, generator: torch.Generator):
+        with spans.step("frame.step"):
+            return frame(state, generator)
+
+    def frame(state: PairFrameState, generator: torch.Generator):
         i = state.frame
-        flat, vals, _ = deposits(generator)
-        slot = i % FLUSH_K
-        state.pend_flat[slot].copy_(flat)
-        state.pend_vals[slot].copy_(vals)
-        mark("deposits")
-        if slot == FLUSH_K - 1:
-            rbt._inject_flat(state.src2, state.pend_flat.view(-1),
-                             state.pend_vals.view(-1, 3))
-        mark("flush")
-        t, g = i % 2, (i // 2) % groups
-        state.cache[t, g] = rbt.resolve_raw(fields, state.src2, height, width,
-                                            group=g, n_groups=groups, tracer=t)
-        raw_a, raw_b = state.cache[0].sum(0), state.cache[1].sum(0)
-        mark("resolve")
-        iters = (state.r + 1).float()
-        if i % CAL == 0:
-            hdr_a = to_hdr(raw_a, iters, gbuffer, finalize_outscatter=True)
-            hdr_b = to_hdr(raw_b, iters, gbuffer, finalize_outscatter=True)
-            disp, k = denoise_pair_auto(model, variables, hdr_a, hdr_b, transform)
-            mark("display_cal")
-        else:
-            hdr_x = to_hdr((raw_a + raw_b) * 0.5, iters, gbuffer,
-                           finalize_outscatter=True)
-            out_x = denoise_hdr(model, variables, hdr_x, transform)
-            disp, k = hdr_x + state.k_prev * (out_x - hdr_x), state.k_prev
-            mark("display_fast")
-        pix = tonemap_uchimura(upsample(disp.to(display_dtype), prof.out_height,
-                                        prof.out_width) * 0.5, UchimuraShape())
-        mark("upsample_tonemap")
+        with spans.span("frame.deposits"):
+            flat, vals, _ = deposits(generator)
+            slot = i % FLUSH_K
+            state.pend_flat[slot].copy_(flat)
+            state.pend_vals[slot].copy_(vals)
+        with spans.span("frame.flush"):
+            if slot == FLUSH_K - 1:
+                rbt._inject_flat(state.src2, state.pend_flat.view(-1),
+                                 state.pend_vals.view(-1, 3))
+        with spans.span("frame.resolve"):
+            t, g = i % 2, (i // 2) % groups
+            state.cache[t, g] = rbt.resolve_raw(fields, state.src2, height, width,
+                                                group=g, n_groups=groups, tracer=t)
+            raw_a, raw_b = state.cache[0].sum(0), state.cache[1].sum(0)
+        calibrate = i % CAL == 0
+        with spans.span("frame.display_cal" if calibrate else "frame.display_fast"):
+            iters = (state.r + 1).float()
+            if calibrate:
+                hdr_a = to_hdr(raw_a, iters, gbuffer, finalize_outscatter=True)
+                hdr_b = to_hdr(raw_b, iters, gbuffer, finalize_outscatter=True)
+                disp, k = denoise_pair_auto(model, variables, hdr_a, hdr_b, transform)
+            else:
+                hdr_x = to_hdr((raw_a + raw_b) * 0.5, iters, gbuffer,
+                               finalize_outscatter=True)
+                out_x = denoise_hdr(model, variables, hdr_x, transform)
+                disp, k = hdr_x + state.k_prev * (out_x - hdr_x), state.k_prev
+        with spans.span("frame.upsample_tonemap"):
+            pix = tonemap_uchimura(upsample(disp.to(display_dtype), prof.out_height,
+                                            prof.out_width) * 0.5, UchimuraShape())
         state.k_prev = k
         state.r += 1
         state.frame += 1

@@ -9,6 +9,11 @@ converged" loop stays on the host, with a scalar read back every
 `measurement_interval` frames (the reference's async readback,
 Simulation.cs:434-438, 469-493).
 
+A frame is the step span `sim.step` (core/spans.py), its tracers' work
+`sim.trace` and the host's read of the convergence measure `sim.measure`;
+under `spans.enable()` the card's times at their edges split a step's host
+issue from its device time (chip_smoke.py's `simulation` phase reads them).
+
 Everything runs on `device` ("cuda" unless the caller asks for "cpu"); a
 scene on another device is refused. One `torch.Generator` on that device,
 seeded from `seed`, feeds every tracer in turn. The host reads the scene
@@ -27,6 +32,7 @@ from typing import Callable
 
 import torch
 
+from ..core import spans
 from ..core.types import GBuffer, SimulationProfile
 from ..post.tracer_post import compute_cv_and_mips, importance_pyramid, measure_convergence
 from ..scene.gbuffer import rasterize
@@ -120,6 +126,7 @@ class Simulation:
         self.photon_writes_per_second = 0.0
         self.photons_per_second = 0.0
         self._last_perf = None
+        self._perf_events: list = []  # on CUDA: (event, writes, photons) not yet read
         self.on_step: list[Callable[[int], None]] = []
         self.on_converged: list[Callable[[], None]] = []
         self.on_convergence_update: list[Callable[[float], None]] = []
@@ -293,6 +300,10 @@ class Simulation:
     def step(self):
         """One simulation frame (reference: Update + LateUpdate,
         Simulation.cs:323-467)."""
+        with spans.step("sim.step"):
+            self._step()
+
+    def _step(self):
         if self._scene is None:
             raise RuntimeError("step() called with no scene set")
         self._validate_tracers()
@@ -319,18 +330,19 @@ class Simulation:
 
         self.iterations_since_clear += 1
         gen = self._generator()
-        for t in self._tracers:
-            t.begin_trace(self._scene, gen)
+        with spans.span("sim.trace"):
+            for t in self._tracers:
+                t.begin_trace(self._scene, gen)
 
-        # Gate check first: the hybrid's early radiance is a forward resolve,
-        # read once a tracer.
-        if self._should_update_importance_map():
-            early = [t.early_radiance for t in self._tracers]
-            if all(r is not None for r in early):
-                self.importance_map = importance_pyramid(*early)
+            # Gate check first: the hybrid's early radiance is a forward
+            # resolve, read once a tracer.
+            if self._should_update_importance_map():
+                early = [t.early_radiance for t in self._tracers]
+                if all(r is not None for r in early):
+                    self.importance_map = importance_pyramid(*early)
 
-        for t in self._tracers:
-            t.end_trace(self.importance_map, gen)
+            for t in self._tracers:
+                t.end_trace(self.importance_map, gen)
 
         # Outputs resolve lazily, when they are read.
         self._outputs_stale = True
@@ -355,7 +367,8 @@ class Simulation:
     def _measure_convergence(self, initial: bool):
         if self.has_converged:
             return
-        self.convergence_progress = float(measure_convergence(self.variance_map))
+        with spans.span("sim.measure"):
+            self.convergence_progress = float(measure_convergence(self.variance_map))
         for cb in self.on_convergence_update:
             cb(self.convergence_progress)
         if not initial and 0 < self.convergence_threshold > self.convergence_progress:
@@ -378,18 +391,51 @@ class Simulation:
     def update_performance_metrics(self):
         """Throughput counters (Simulation.cs:440-461). photons_per_second
         has the same unit for every engine; photon_writes_per_second keeps
-        each engine's own write unit (ForwardIntegrator.write_count)."""
+        each engine's own write unit (ForwardIntegrator.write_count).
+
+        On a CUDA device the rates count work the card has done: a call
+        that finds new work issued since the last records an event after
+        it, and the rates are taken between the last event read (at first,
+        the oldest the card has completed) and the newest the card has
+        completed (`query`, `elapsed_time`: no synchronize). Until the card
+        completes a newer one they keep their values. Elsewhere the interval
+        is the host clock's between calls."""
         if self._tracers is None:
             return
-        now = time.monotonic()
         total_writes = sum(t.forward_write_count for t in self._tracers)
         total_photons = sum(t.forward_photon_count for t in self._tracers)
-        if self._last_perf is not None:
-            dt = now - self._last_perf[0]
-            if dt > 0:
-                self.photon_writes_per_second = (total_writes - self._last_perf[1]) / dt
-                self.photons_per_second = (total_photons - self._last_perf[2]) / dt
-        self._last_perf = (now, total_writes, total_photons)
+        dev = torch.device(self.device)
+        if dev.type != "cuda":
+            now = time.monotonic()
+            if self._last_perf is not None:
+                self._set_rates(now - self._last_perf[0], total_writes, total_photons)
+            self._last_perf = (now, total_writes, total_photons)
+            return
+        pending = self._perf_events
+        last = pending[-1] if pending else self._last_perf
+        if last is None or last[1:] != (total_writes, total_photons):
+            event = torch.cuda.Event(enable_timing=True)
+            event.record(torch.cuda.current_stream(dev))
+            pending.append((event, total_writes, total_photons))
+        if not pending:
+            return
+        # A stream completes its events in order: the newest done is the last.
+        done = next((i for i in range(len(pending) - 1, -1, -1) if pending[i][0].query()), None)
+        if done is None:
+            return
+        if self._last_perf is None:
+            self._last_perf = pending[0]
+        newest = pending[done]
+        del pending[:done + 1]
+        if newest is not self._last_perf:
+            self._set_rates(self._last_perf[0].elapsed_time(newest[0]) * 1e-3,
+                            newest[1], newest[2])
+        self._last_perf = newest
+
+    def _set_rates(self, dt: float, writes: int, photons: int) -> None:
+        if dt > 0:
+            self.photon_writes_per_second = (writes - self._last_perf[1]) / dt
+            self.photons_per_second = (photons - self._last_perf[2]) / dt
 
     @property
     def estimated_convergence_time(self) -> float:

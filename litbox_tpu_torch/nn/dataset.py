@@ -20,6 +20,7 @@ import glob
 
 import numpy as np
 
+from ..core import spans
 from ..io.images import read_image_linear
 
 
@@ -56,10 +57,15 @@ class DenoiserDataset:
     def __len__(self) -> int:
         return len(self.input_a_paths)
 
+    @staticmethod
+    def _read(path: str) -> np.ndarray:
+        spans.count("data.exr_reads", 1)
+        return read_image_linear(path)
+
     def _read_cached(self, path: str) -> np.ndarray:
         img = self._cache.get(path)
         if img is None:
-            img = self._cache[path] = read_image_linear(path)
+            img = self._cache[path] = self._read(path)
         return img
 
     @staticmethod
@@ -74,7 +80,7 @@ class DenoiserDataset:
     def __getitem__(self, idx: int, rng: np.random.Generator | None = None):
         rng = rng or np.random.default_rng()
         scale = 1.0 if self.scales is None else float(self.scales[idx])
-        read = self._read_cached if self.cache_images else read_image_linear
+        read = self._read_cached if self.cache_images else self._read
         a = read(self.input_a_paths[idx]) * scale
         b = read(self.input_b_paths[idx]) * scale
         albedo = read(self.albedo_paths[idx])
@@ -109,19 +115,23 @@ class DenoiserDataset:
         return a, b, albedo, trans, ref
 
     def batches(self, batch_size: int, rng: np.random.Generator, shuffle: bool = False):
-        """Yield NHWC float32 batch dicts."""
+        """Yield NHWC float32 batch dicts. Making each is the span
+        `data.batch`; the counter `data.batch_bytes` adds up their bytes."""
         order = np.arange(len(self))
         if shuffle:
             rng.shuffle(order)
         for s in range(0, len(order) - batch_size + 1, batch_size):
-            items = [self.__getitem__(int(i), rng) for i in order[s:s + batch_size]]
-            yield {
-                "input_a": np.stack([it[0] for it in items]).astype(np.float32),
-                "input_b": np.stack([it[1] for it in items]).astype(np.float32),
-                "albedo": np.stack([it[2] for it in items]).astype(np.float32),
-                "transmissibility": np.stack([it[3] for it in items]).astype(np.float32),
-                "reference": np.stack([it[4] for it in items]).astype(np.float32),
-            }
+            with spans.span("data.batch"):
+                items = [self.__getitem__(int(i), rng) for i in order[s:s + batch_size]]
+                batch = {
+                    "input_a": np.stack([it[0] for it in items]).astype(np.float32),
+                    "input_b": np.stack([it[1] for it in items]).astype(np.float32),
+                    "albedo": np.stack([it[2] for it in items]).astype(np.float32),
+                    "transmissibility": np.stack([it[3] for it in items]).astype(np.float32),
+                    "reference": np.stack([it[4] for it in items]).astype(np.float32),
+                }
+            spans.count("data.batch_bytes", sum(v.nbytes for v in batch.values()))
+            yield batch
 
 
 def build_curriculum(reference_glob: str, albedo_glob: str, trans_glob: str,

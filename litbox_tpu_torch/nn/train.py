@@ -19,6 +19,11 @@ The clip, the schedule and the Adam step stay on the device, so
 A step's forward and backward run under `step_convolutions`: on a card,
 PyTorch's own convolution kernels instead of cuDNN's (see there).
 
+A step is the step span `train.step` (core/spans.py) around `train.forward`,
+`train.backward`, `train.optimizer` and, where the loss is read,
+`train.loss_read`; `select_random_channel` records `data.channel` and the
+copy to the device `train.h2d`, with its bytes in `train.h2d_bytes`.
+
 `save` writes the JAX package's npz layout: `params:<flax path>`,
 `stats:<flax path>`, the optimizer under optax's paths (`opt:2/0/.count`,
 `opt:2/0/.mu/...`, `opt:2/0/.nu/...`, `opt:2/1/.count` with a schedule),
@@ -40,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import convert
+from ..core import spans
 from .dataset import DenoiserDataset
 from .loss import HdrLossConfig, hdr_loss
 from .unet import (LitboxDenoiserNet, TransformConfig, init_weights, post_transform,
@@ -253,17 +259,25 @@ class Trainer:
         for p in self.params.values():
             p.grad = None
         with step_convolutions(self.device):
-            loss = loss_fn(*args)
-            loss.backward()
+            with spans.span("train.forward"):
+                loss = loss_fn(*args)
+            with spans.span("train.backward"):
+                loss.backward()
         return loss.detach()
 
-    def _step(self, loss_fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
+    def _update(self, loss_fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
         """The gradients, then one optimizer update; the gradients stay in
         each parameter's .grad."""
         loss = self.gradients(loss_fn, *args)
-        self.optimizer.step({k: p.grad for k, p in self.params.items()})
+        with spans.span("train.optimizer"):
+            self.optimizer.step({k: p.grad for k, p in self.params.items()})
         self.global_step += 1
         return loss
+
+    def _step(self, loss_fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
+        """One step, the span `train.step`, with no host read."""
+        with spans.step("train.step"):
+            return self._update(loss_fn, *args)
 
     def train_batch_async(self, inputs, targets) -> torch.Tensor:
         """One step; returns the loss as a 0-d tensor on the device, with no
@@ -278,20 +292,28 @@ class Trainer:
         return self._step(self.pair_loss, a, b, ref)
 
     def train_batch(self, inputs, targets) -> float:
-        return float(self.train_batch_async(inputs, targets))
+        """One step and the read of its loss, which waits for the device."""
+        with spans.step("train.step"):
+            loss = self._update(self.loss, inputs, targets)
+            with spans.span("train.loss_read"):
+                return float(loss)
 
     @staticmethod
     def select_random_channel(batch: dict, rng: np.random.Generator,
                               device: str | torch.device = "cuda"):
         """Same random channel for input and target per item
         (train_litbox_denoiser.py:102-113), as tensors on `device`."""
-        n = batch["input_a"].shape[0]
-        c = rng.integers(0, 3, n)
-        idx = np.arange(n)
-        inputs = batch["input_a"][idx, :, :, c][..., None]
-        targets = batch["reference"][idx, :, :, c][..., None]
-        return (torch.as_tensor(inputs, device=device),
-                torch.as_tensor(targets, device=device))
+        with spans.span("data.channel"):
+            n = batch["input_a"].shape[0]
+            c = rng.integers(0, 3, n)
+            idx = np.arange(n)
+            inputs = batch["input_a"][idx, :, :, c][..., None]
+            targets = batch["reference"][idx, :, :, c][..., None]
+        with spans.span("train.h2d"):
+            out = (torch.as_tensor(inputs, device=device),
+                   torch.as_tensor(targets, device=device))
+        spans.count("train.h2d_bytes", inputs.nbytes + targets.nbytes)
+        return out
 
     def fit(self, curriculum: list[tuple[str, DenoiserDataset]],
             checkpoint_folder: str | None = None,
@@ -308,8 +330,10 @@ class Trainer:
             for epoch in range(self.cfg.epochs):
                 for batch in dataset.batches(self.cfg.batch_size, rng, shuffle=True):
                     if self.cfg.rgb:
-                        inputs = self._tensor(batch["input_a"])
-                        targets = self._tensor(batch["reference"])
+                        with spans.span("train.h2d"):
+                            inputs = self._tensor(batch["input_a"])
+                            targets = self._tensor(batch["reference"])
+                        spans.count("train.h2d_bytes", inputs.nbytes + targets.nbytes)
                     else:
                         inputs, targets = self.select_random_channel(batch, rng, self.device)
                     loss = self.train_batch(inputs, targets)
