@@ -22,7 +22,10 @@ and runs thirteen phases, each printed with its wall seconds:
   per-frame resolve's shape from a flushed L2, K3 held equal to the
   in-order sum of K2's outputs bit for bit, and K4 also with LARGE_DELTA,
   two calls held equal bit for bit, beside its own counts of the windows
-  it took by its tap path and of the bytes its staged copies read.
+  it took by its tap path and of the bytes its staged copies read; the
+  optimizer's update kernel (ops/adam.py) at TrainConfig()'s 180
+  parameter tensors, clip on and off, beside its bound, the plain chain's
+  device ms and the plain chain's device operations.
 - frame: bench.py's frame at 256^2 (rotated fields with 128 bins, 10 trace
   frames of 2,000,000 photons with 524,288 bounce chains, one resolve and
   the HDR conversion) with its checks.
@@ -98,7 +101,10 @@ and runs thirteen phases, each printed with its wall seconds:
   steps: ms a step, peak memory, no host sync in the loop (torch's sync
   debug mode), finite losses, the learning rate at steps 0, the end of
   warm-up and the end, the checkpoint (optimizer included) round-tripping,
-  from_checkpoint with blend "auto" running an on_step.
+  from_checkpoint with blend "auto" running an on_step. Both: the
+  optimizer's update kernel launched twice a step (its launches and the
+  step records' train.optimizer_launches), the host's median ms in
+  train.optimizer.
 - data: data.TrainingFactory with runs/gen_dataset_r2.py's recipe (:17-31:
   256², input profiles (5, 8192), (1, 65536), (1, 262144), convergence at
   262,144 photons to 6e-4 within 250 frames, seed 1042, MC direct inputs,
@@ -218,7 +224,7 @@ from litbox_tpu_torch.nn.dataset import build_curriculum
 from litbox_tpu_torch.nn.device_data import DeviceStages, stack_stage
 from litbox_tpu_torch.nn.loss import HdrLossConfig, hdr_loss
 from litbox_tpu_torch.nn.unet import LitboxDenoiserNet, TransformConfig, init_weights
-from litbox_tpu_torch.ops import attnscan, cuda_lib, rotate
+from litbox_tpu_torch.ops import adam, attnscan, cuda_lib, rotate
 from litbox_tpu_torch.parallel import train_sharded as parallel_train
 from litbox_tpu_torch.parallel import world as par_world
 from litbox_tpu_torch.prof import microops, rotfused
@@ -256,6 +262,12 @@ KERNELS = {
     "rotate_planar_sum_fused": dict(source="litbox_tpu_torch/csrc/rotfused.cu",
                                     replaces="litbox_tpu/ops/rotate.py:458",
                                     tol=2e-5),
+    # The training step's optimizer: no TPU kernel (optax on XLA). With the
+    # clip scaling, the norm is summed in another order than torch.sum's:
+    # mu and nu within 1e-5 of each tensor's largest value (p within 1e-6);
+    # without it, bit for bit.
+    "adam_update": dict(source="litbox_tpu_torch/csrc/adam.cu",
+                        replaces="none (optax on XLA: litbox_tpu/nn/train.py)", tol=1e-5),
 }
 # K4's cost split: up to 384 images summed in order in the kernels, in
 # PyTorch's order in the plain versions.
@@ -271,6 +283,7 @@ for _name, _line in MICROOPS.items():
     KERNELS[_name] = dict(source="litbox_tpu_torch/csrc/prof_microops.cu",
                           replaces=f"runs/prof_microops.py:{_line}", tol=0.0)
 COUNTERS = {"attenuation_scan_rows": attnscan.attenuation_scan_rows,
+            "adam_update": adam.adam_update,
             "shear": rotate.shear, "shear_reduce": rotate.shear_reduce,
             "rotate_planar_sum_fused": rotate.rotate_planar_sum_fused,
             **{name: getattr(rotfused, name) for name in SPLIT},
@@ -665,6 +678,68 @@ def check_rotfused(gen, s, stride, delta) -> dict:
     return out
 
 
+def _rel_by_tensor(got: list, want: list) -> float:
+    """The largest max|got - want| over max|want|, tensor by tensor."""
+    return float(torch.stack([(a - b).abs().max() / b.abs().max().clamp_min(1e-30)
+                              for a, b in zip(got, want)]).max())
+
+
+def check_adam(gen, clip: float) -> dict:
+    """The optimizer's update at TrainConfig()'s 180 parameter shapes (320 M
+    floats), gradients of global norm 3 (the clip scales them when on):
+    one update from one state through the kernel and the plain chain, held
+    tensor by tensor (p to 1e-6, mu and nu to 1e-5 of each tensor's largest
+    value; without the clip bit for bit), then the kernel's and the plain
+    chain's device ms (the update applied again each call), and the plain
+    chain's device operations, counted by the profiler."""
+    cfg = train.TrainConfig(grad_clip=clip)
+    with torch.device("meta"):
+        shapes = [tuple(p.shape) for p in LitboxDenoiserNet(cfg.unet_size,
+                                                            cfg.initial_features).parameters()]
+    n = sum(int(np.prod(s)) for s in shapes)
+    params = [torch.randn(s, generator=gen, device="cuda") * 0.3 for s in shapes]
+    grads = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    total = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    grads = [g * (3.0 / total) for g in grads]
+    sides = [dict(p=[x.clone() for x in params], mu=[torch.full_like(x, 1e-3) for x in params],
+                  nu=[torch.full_like(x, 1e-6) for x in params],
+                  count=torch.full((), 7, dtype=torch.int32, device="cuda"))
+             for _ in range(2)]
+    del params
+    tables = adam.Tables()
+    kern = lambda: adam.adam_update(  # noqa: E731
+        sides[0]["p"], grads, sides[0]["mu"], sides[0]["nu"], sides[0]["count"],
+        cfg.learn_rate, clip, cfg.weight_decay, None, tables)
+    plain = lambda: adam.adam_update_plain(  # noqa: E731
+        sides[1]["p"], grads, sides[1]["mu"], sides[1]["nu"], sides[1]["count"],
+        cfg.learn_rate, clip, cfg.weight_decay)
+    before = adam.adam_update.launches
+    kern()
+    launches = adam.adam_update.launches - before
+    plain()
+    torch.cuda.synchronize()
+    errs = {k: _rel_by_tensor(sides[0][k], sides[1][k]) for k in ("p", "mu", "nu")}
+    tol = dict(p=1e-6, mu=1e-5, nu=1e-5) if clip else dict(p=0.0, mu=0.0, nu=0.0)
+    if any(errs[k] > tol[k] for k in tol) or int(sides[0]["count"]) != 8:
+        raise AssertionError(f"adam_update (clip {clip}): kernel vs plain {errs} "
+                             f"against {tol}, count {int(sides[0]['count'])}")
+    ms = time_ms(kern)
+    plain_ms = time_ms(plain, reps=3, warmup=1)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        plain()
+        torch.cuda.synchronize()
+    plain_ops = sum(e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    n_bytes = (32 if clip else 28) * n
+    bound_ms, bound_by = bound(n_bytes, 0)
+    del sides, grads, tables
+    torch.cuda.empty_cache()
+    return dict(shape=f"TrainConfig()'s {len(shapes)} tensors, {n} floats", grad_clip=clip,
+                ms=ms, bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+                roofline_share=bound_ms / ms, plain_ms=plain_ms, update_launches=launches,
+                plain_device_ops=plain_ops, max_rel_err=errs)
+
+
 def kernels_phase() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     d = N_BINS
@@ -740,6 +815,7 @@ def kernels_phase() -> dict:
             check_rotfused(gen, 384, 1, 0.0), check_rotfused(gen, 640, 1, 0.0),
             check_rotfused(gen, 384, 1, jitter), check_rotfused(gen, 640, 1, jitter),
             check_rotfused(gen, 640, 4, 0.0), check_rotfused(gen, 640, 1, LARGE_DELTA)),
+        "adam_update": (check_adam(gen, 1.0), check_adam(gen, 0.0)),
     }
     for name, cases in sharded.items():
         results[name] += cases
@@ -2119,6 +2195,21 @@ def _on_card_step(name: str, root: Path, ckpt: str, failures: list, **kw) -> dic
                 last_blend=None if acc.last_blend is None else float(acc.last_blend))
 
 
+def _update_launches(name: str, before: int, failures: list) -> dict:
+    """The optimizer's kernel over the last TRAIN_STEPS steps: its launches
+    (2 a step, the clip on), the step records' `train.optimizer_launches`
+    and the host's median ms in `train.optimizer`."""
+    records = spans.step_records()[-TRAIN_STEPS:]
+    launches = adam.adam_update.launches - before
+    counted = sorted({r.counts.get("train.optimizer_launches") for r in records})
+    if launches != 2 * TRAIN_STEPS or counted != [2]:
+        failures.append(f"{name}: {launches} update launches in {TRAIN_STEPS} steps, "
+                        f"train.optimizer_launches {counted}")
+    return dict(launches=launches, optimizer_launches_per_step=counted,
+                optimizer_host_ms=statistics.median(r.host_ms("train.optimizer")
+                                                    for r in records))
+
+
 def _mono(root: Path, failures: list) -> dict:
     """TrainConfig()'s defaults through build_curriculum and Trainer.fit."""
     cfg = train.TrainConfig()
@@ -2132,11 +2223,13 @@ def _mono(root: Path, failures: list) -> dict:
         failures.append("mono: the Trainer is not on the card")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    before = adam.adam_update.launches
     with contextlib.redirect_stdout(io.StringIO()):
         log = trainer.fit(curriculum, log_every=0.0, max_steps=TRAIN_STEPS)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated()
+    update = _update_launches("mono", before, failures)
     losses = [e["loss"] for e in log]
     _losses_ok("mono", losses, failures)
     if trainer.global_step != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
@@ -2179,7 +2272,8 @@ def _mono(root: Path, failures: list) -> dict:
                 peak_memory_bytes=peak, loss_first=losses[0], loss_last=losses[-1],
                 grad_vs_cpu=dict(max_abs_err=grad_err, max_abs=scale, tol=TRAIN_GRAD_TOL,
                                  card_loss=card_loss, cpu_loss=cpu_loss, both_ms=cpu_ms),
-                save_load_ms=io_ms, eval_equal_after_load=same, from_checkpoint=accel)
+                save_load_ms=io_ms, eval_equal_after_load=same, from_checkpoint=accel,
+                update=update)
 
 
 def _r5_config(steps: int) -> "train.TrainConfig":
@@ -2219,10 +2313,12 @@ def _pair(root: Path, failures: list) -> dict:
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    before = adam.adam_update.launches
     syncs = host_syncs(steps)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated()
+    update = _update_launches("pair", before, failures)
     if syncs:
         failures.append(f"pair: the step loop made the host wait at {sorted(set(syncs))}")
     if any(x.device.type != "cuda" for x in losses):
@@ -2260,7 +2356,7 @@ def _pair(root: Path, failures: list) -> dict:
                 fp32_peak_share=flop / (ms / 1e3) / FP32_OPS_PER_S,
                 peak_memory_bytes=peak, loss_first=losses[0], loss_last=losses[-1],
                 host_syncs_in_loop=len(syncs), lr_at=got, checkpoint_round_trip=same,
-                from_checkpoint=accel)
+                from_checkpoint=accel, update=update)
 
 
 def train_phase() -> dict:
@@ -2285,7 +2381,8 @@ def train_phase() -> dict:
     if failures:
         raise AssertionError("; ".join(failures))
     return dict(allow_tf32=tf32, corpus=corpus, mono=mono, pair=pair,
-                launches=corpus["launches"])
+                launches=dict(corpus["launches"], adam_update=mono["update"]["launches"]
+                              + pair["update"]["launches"]))
 
 
 # Dataset generation (the data phase): runs/gen_dataset_r2.py's recipe
@@ -2864,12 +2961,12 @@ def parallel_rank() -> dict:
 def parallel_phase() -> dict:
     """litbox_tpu_torch/parallel/ on a world of every visible card with
     NCCL: the data-parallel oracle and RBT, the bin-sharded RBT and the
-    sharded training step (parallel_rank). K1-K3 must be launched by the
-    sharded calls."""
+    sharded training step (parallel_rank). K1-K3 and the optimizer's update
+    kernel must be launched by the sharded calls."""
     n = torch.cuda.device_count()
     reset_counts()
     out = par_world.run(parallel_rank, n, device="cuda", inline_rank0=True, timeout=300)[0]
-    if missing := unlaunched(out["launches"], RESOLVE_KERNELS):
+    if missing := unlaunched(out["launches"], RESOLVE_KERNELS + ("adam_update",)):
         raise AssertionError(f"parallel: kernels of the path were not launched: {missing}")
     return dict(world_size=n, backend=par_world.backend_for("cuda"), **out)
 
@@ -3257,7 +3354,7 @@ def main() -> None:
              "parallel": par["launches"],
              "rotfused_split": split_launches,
              "microops": micro_launches}
-    drives = {"rotate_planar_sum_fused": "fused_resolve",
+    drives = {"rotate_planar_sum_fused": "fused_resolve", "adam_update": "train",
               **{name: "rotfused_split" for name in SPLIT},
               **{name: "microops" for name in MICROOPS}}
     rows = []

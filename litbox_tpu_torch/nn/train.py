@@ -6,23 +6,27 @@ decay 0.01 and lr 1e-5 (train_litbox_denoiser.py:183-186), per-batch random
 channel selection, HdrLoss, and wall-clock checkpointing every
 `checkpoint_interval` seconds.
 
-The optimizer is the JAX package's optax chain written in tensors
-(`Optimizer`): the global-norm clip (scale by max_norm / norm only when
+The optimizer is the JAX package's optax chain (`Optimizer`, through
+`ops.adam`): the global-norm clip (scale by max_norm / norm only when
 norm >= max_norm, no epsilon), the coupled decay g + wd * p on every
 parameter, BatchNorm's scale and bias included, then Adam (b1 0.9,
 b2 0.999, eps 1e-8, eps_root 0) scaled by the learning rate, constant or
 `optax.warmup_cosine_decay_schedule` of the update count (`lr_schedule`).
-The clip, the schedule and the Adam step stay on the device, so
-`train_batch_async` and `train_batch_pair_async` never wait for it;
-`train_batch` and `fit` read the loss each step, as the JAX package's do.
+On a card it is one hand-written kernel (`csrc/adam.cu`), on the CPU the
+chain as tensor ops. The clip, the schedule and the Adam step stay on the
+device, so `train_batch_async` and `train_batch_pair_async` never wait for
+it; `train_batch` and `fit` read the loss each step, as the JAX package's
+do.
 
 A step's forward and backward run under `step_convolutions`: on a card,
 PyTorch's own convolution kernels instead of cuDNN's (see there).
 
 A step is the step span `train.step` (core/spans.py) around `train.forward`,
-`train.backward`, `train.optimizer` and, where the loss is read,
-`train.loss_read`; `select_random_channel` records `data.channel` and the
-copy to the device `train.h2d`, with its bytes in `train.h2d_bytes`.
+`train.backward`, `train.optimizer` (with the counter
+`train.optimizer_launches`: the update kernel's launches) and, where the
+loss is read, `train.loss_read`; `select_random_channel` records
+`data.channel` and the copy to the device `train.h2d`, with its bytes in
+`train.h2d_bytes`.
 
 `save` writes the JAX package's npz layout: `params:<flax path>`,
 `stats:<flax path>`, the optimizer under optax's paths (`opt:2/0/.count`,
@@ -46,12 +50,11 @@ import torch
 
 from .. import convert
 from ..core import spans
+from ..ops import adam
 from .dataset import DenoiserDataset
 from .loss import HdrLossConfig, hdr_loss
 from .unet import (LitboxDenoiserNet, TransformConfig, init_weights, post_transform,
                    pre_transform)
-
-B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
 
 @contextlib.contextmanager
@@ -153,9 +156,12 @@ def lr_schedule(cfg: TrainConfig) -> Callable[[torch.Tensor], torch.Tensor] | fl
 class Optimizer:
     """optax.chain(clip_by_global_norm(grad_clip) or identity,
     add_decayed_weights(weight_decay), adam(lr_schedule(cfg))) over a dict
-    of parameter tensors, updated in place. `state` holds optax's leaves:
-    count, mu and nu (scale_by_adam) and, with a schedule, the schedule's
-    own count, each an int32 0-d tensor or a dict like the parameters."""
+    of parameter tensors, updated in place by `ops.adam.adam_update`: on a
+    card one hand-written kernel in two launches (one with grad_clip 0),
+    on the CPU the chain as tensor ops. `state` holds optax's leaves: count,
+    mu and nu (scale_by_adam) and, with a schedule, the schedule's own
+    count, each an int32 0-d tensor or a dict like the parameters; every
+    one is updated in place, never replaced."""
 
     def __init__(self, params: dict[str, torch.Tensor], cfg: TrainConfig):
         self.params = params
@@ -167,34 +173,22 @@ class Optimizer:
                       "mu": zeros(), "nu": zeros()}
         if callable(self.lr):
             self.state["schedule_count"] = torch.zeros((), dtype=torch.int32, device=dev)
+        self._tables = adam.Tables()
 
     @torch.no_grad()
     def step(self, grads: dict[str, torch.Tensor]) -> None:
         """One update from `grads` (a dict like the parameters), with no
-        read on the host."""
+        read on the host; the counter `train.optimizer_launches` counts the
+        kernel's launches."""
         cfg, st = self.cfg, self.state
         names = list(self.params)
-        g = [grads[k] for k in names]
-        if cfg.grad_clip:
-            norm = torch.sqrt(sum(torch.sum(x * x) for x in g))
-            keep = norm < cfg.grad_clip
-            g = [torch.where(keep, x, (x / norm) * cfg.grad_clip) for x in g]
-        g = [x + cfg.weight_decay * self.params[k] for k, x in zip(names, g)]
-        count = st["count"] + 1
-        bc1 = 1 - torch.pow(B1, count.float())
-        bc2 = 1 - torch.pow(B2, count.float())
-        if callable(self.lr):
-            step_size = -self.lr(st["schedule_count"])
-            st["schedule_count"] = st["schedule_count"] + 1
-        else:
-            step_size = -self.lr
-        for k, x in zip(names, g):
-            mu = (1 - B1) * x + B1 * st["mu"][k]
-            nu = (1 - B2) * (x * x) + B2 * st["nu"][k]
-            st["mu"][k], st["nu"][k] = mu, nu
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
-            self.params[k].copy_(self.params[k] + step_size * update)
-        st["count"] = count
+        lr = self.lr(st["schedule_count"]) if callable(self.lr) else self.lr
+        before = adam.adam_update.launches
+        adam.adam_update(list(self.params.values()), [grads[k] for k in names],
+                         [st["mu"][k] for k in names], [st["nu"][k] for k in names],
+                         st["count"], lr, cfg.grad_clip, cfg.weight_decay,
+                         st.get("schedule_count"), self._tables)
+        spans.count("train.optimizer_launches", adam.adam_update.launches - before)
 
 
 class Trainer:
@@ -382,7 +376,9 @@ class Trainer:
 
     def load(self, path: str):
         """Load a checkpoint of either package; leaves the file lacks keep
-        their values (as the JAX package's load does)."""
+        their values (as the JAX package's load does). Each value is copied
+        into the tensor that holds it, since the optimizer's kernel keeps the
+        tensors' pointers."""
         if not path.endswith(".npz") and os.path.exists(path + ".npz"):
             path = path + ".npz"
         arrays = np.load(path)
@@ -403,13 +399,13 @@ class Trainer:
             st = self.optimizer.state
             for key, name in (("opt:2/0/.count", "count"), ("opt:2/1/.count", "schedule_count")):
                 if name in st and key in arrays.files:
-                    st[name] = value(key, st[name], False)
+                    st[name].copy_(value(key, st[name], False))
             for moment in ("mu", "nu"):
                 for key, t in st[moment].items():
                     _, path_, kernel = convert.flax_path(key)
                     full = f"opt:2/0/.{moment}/{path_}"
                     if full in arrays.files:
-                        st[moment][key] = value(full, t, kernel)
+                        t.copy_(value(full, t, kernel))
 
     def eval_fn(self) -> Callable[[Any], torch.Tensor]:
         """The forward in eval mode: x (numpy or a tensor, NHWC) moves to the

@@ -32,6 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "litbox_attnscan_rows": [_P] * 7 + [_I] * 6 + [_P],
     "litbox_attnscan_empty": [_I] * 3 + [_P],
@@ -47,6 +49,8 @@ _SIGNATURES = {
     "litbox_prof_roll_rows": [_P] * 3 + [_I] * 2 + [_P],
     "litbox_prof_roll_cols": [_P] * 3 + [_I] * 2 + [_P],
     "litbox_prof_flip2": [_P] * 2 + [_I] * 2 + [_P],
+    "litbox_adam_norm": [_P, _I, _P, _L, _P, _I, _P],
+    "litbox_adam_update": [_P, _I, _P, _L, _P, _I] + [_P] * 3 + [_F] * 8 + [_P],
 }
 
 

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from litbox_tpu_torch.ops import attnscan, rotate
+from litbox_tpu_torch.ops import adam, attnscan, rotate
 from litbox_tpu_torch.prof import microops, rotfused
 from litbox_tpu_torch.sim import rbt
 
@@ -633,6 +633,163 @@ def test_trainer_step_on_card_matches_cpu(dev, monkeypatch):
 
     check({k: p.grad for k, p in card.params.items()}, {k: p.grad for k, p in cpu.params.items()})
     check(card.model.state_dict(), cpu.model.state_dict())
+
+
+def _net_shapes():
+    """TrainConfig()'s 180 parameter shapes (LitboxDenoiserNet(5, 32)):
+    1 to 75.5 M floats, 320 M in all."""
+    from litbox_tpu_torch.nn.unet import LitboxDenoiserNet
+
+    with torch.device("meta"):
+        return [tuple(p.shape) for p in LitboxDenoiserNet(5, 32).parameters()]
+
+
+def _adam_sides(dev, shapes, schedule, gen):
+    p0 = [torch.randn(s, generator=gen, device=dev) * 0.3 for s in shapes]
+    return [dict(p=[x.clone() for x in p0], mu=[torch.zeros_like(x) for x in p0],
+                 nu=[torch.zeros_like(x) for x in p0],
+                 count=torch.zeros((), dtype=torch.int32, device=dev),
+                 sched=torch.zeros((), dtype=torch.int32, device=dev) if schedule else None)
+            for _ in range(2)]
+
+
+def _adam_steps(dev, shapes, clip, norm, schedule, steps=5, views=None):
+    """`steps` updates of the same gradients (global norm `norm`) through the
+    kernel and the plain chain; yields the two sides after each step."""
+    from litbox_tpu_torch.nn.train import TrainConfig, lr_schedule
+
+    extra = dict(lr_decay_steps=8, warmup_steps=3, lr_min=1e-4) if schedule else {}
+    lr_fn = lr_schedule(TrainConfig(grad_clip=clip, learn_rate=1e-3, **extra))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kern, plain = _adam_sides(dev, shapes, schedule, gen)
+    if views is not None:
+        kern = {k: [views(x) for x in v] if isinstance(v, list) else v for k, v in kern.items()}
+    tables = adam.Tables()
+    for _ in range(steps):
+        g = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+        total = torch.sqrt(sum(torch.sum(x * x) for x in g))
+        g = [x * (norm / total) for x in g]
+        before = adam.adam_update.launches
+        for side in (kern, plain):
+            lr = lr_fn(side["sched"]) if schedule else lr_fn
+            args = (side["p"], g if side is plain or views is None else [views(x) for x in g],
+                    side["mu"], side["nu"], side["count"], lr, clip, 0.01, side["sched"])
+            if side is kern:
+                adam.adam_update(*args, tables)
+            else:
+                adam.adam_update_plain(*args)
+        assert adam.adam_update.launches == before + (2 if clip else 1)
+        torch.cuda.synchronize()
+        yield kern, plain
+
+
+def _worst_rel(got: list, want: list) -> float:
+    """The largest max|got - want| over max|want|, tensor by tensor."""
+    errs = [(a - b).abs().max() / b.abs().max().clamp_min(1e-30)
+            for a, b in zip(got, want) if b.numel()]
+    return float(torch.stack(errs).max())
+
+
+# (grad_clip, the gradients' global norm, lr schedule). Where the clip
+# scales (norm 3 > 1), the kernel sums the norm in its chunks' order and
+# torch.sum tensor by tensor, float32 roundings apart (about 1e-7 of the
+# norm): mu and nu within 1e-5 of each tensor's largest value, p within
+# 1e-6 (the scale cancels in mu / sqrt(nu)). Elsewhere every operation
+# rounds as the chain's own launches round it: bit for bit. A block that
+# took another update's bias correction would miss by >= 14% of a step
+# (1e-3 here; 1-0.9^5 against 1-0.9^6), far past either bound.
+ADAM_CASES = [(1.0, 3.0, False), (1.0, 0.3, False), (0.0, 3.0, False),
+              (1.0, 3.0, True), (0.0, 0.3, True)]
+
+
+@pytest.mark.parametrize("clip,norm,schedule", ADAM_CASES)
+def test_adam_kernel_matches_plain(dev, clip, norm, schedule):
+    """5 updates of TrainConfig()'s 180 parameter tensors through the kernel
+    and the plain chain from the same state and gradients: params, moments
+    and the counts after every step (the counts equal, the launches 2 a
+    step with the clip, 1 without)."""
+    scaled = clip and norm >= clip
+    tol = dict(p=1e-6, mu=1e-5, nu=1e-5) if scaled else dict(p=0.0, mu=0.0, nu=0.0)
+    for step, (kern, plain) in enumerate(_adam_steps(dev, _net_shapes(), clip, norm, schedule)):
+        for key, bound in tol.items():
+            err = _worst_rel(kern[key], plain[key])
+            assert err <= bound, (step, key, err)
+        assert int(kern["count"]) == int(plain["count"]) == step + 1
+        if schedule:
+            assert int(kern["sched"]) == int(plain["sched"]) == step + 1
+
+
+@pytest.mark.parametrize("layout", ["aligned", "unaligned"])
+def test_adam_kernel_edges(dev, layout):
+    """Tensors of 0, 1, 3, 4, 8191, 8192 and 8193 floats (a chunk is 8192)
+    and one of several chunks, 16-byte aligned or every one a float off
+    (the kernel's scalar path), held to the plain chain as above; a second
+    run from the same state equals the first bit for bit (the norm's sums
+    take a fixed order)."""
+    shapes = [(0,), (1,), (3,), (4,), (8191,), (8192,), (8193,), (5, 7, 1000)]
+    views = _unaligned if layout == "unaligned" else None
+    runs = []
+    for _ in range(2):
+        for step, (kern, plain) in enumerate(_adam_steps(dev, shapes, 1.0, 3.0, True,
+                                                         views=views)):
+            for key, bound in dict(p=1e-6, mu=1e-5, nu=1e-5).items():
+                assert _worst_rel(kern[key], plain[key]) <= bound, (step, key)
+        runs.append(kern)
+    for key in ("p", "mu", "nu"):
+        assert all(torch.equal(a, b) for a, b in zip(runs[0][key], runs[1][key]))
+
+
+def test_adam_wrapper_raises_on_the_card(dev):
+    params = [torch.zeros(4, device=dev)]
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    moments = ([torch.zeros(4, device=dev)], [torch.zeros(4, device=dev)])
+    for grads, error in (([torch.zeros(4, device=dev, dtype=torch.float64)], TypeError),
+                         ([torch.zeros(8, device=dev)[::2]], ValueError),
+                         ([torch.zeros(4)], ValueError)):
+        with pytest.raises(error):
+            adam.adam_update(params, grads, *moments, count, 1e-3, 1.0, 0.01, None,
+                             adam.Tables())
+    with pytest.raises(ValueError):                         # moments on the CPU
+        adam.adam_update(params, [torch.zeros(4, device=dev)], [torch.zeros(4)],
+                         moments[1], count, 1e-3, 1.0, 0.01, None, adam.Tables())
+
+
+def test_adam_first_update_is_sync_free(dev):
+    """The first update, which makes the kernel's table, and the next make
+    the host wait for nothing (torch's sync debug mode raises on a sync)."""
+    shapes = [(3, 5), (8193,)]
+    params = [torch.randn(s, device=dev) for s in shapes]
+    grads = [torch.randn(s, device=dev) for s in shapes]
+    moments = [[torch.zeros(s, device=dev) for s in shapes] for _ in range(2)]
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    tables = adam.Tables()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            adam.adam_update(params, grads, *moments, count, 1e-3, 1.0, 0.01, None, tables)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(count) == 2
+
+
+@pytest.mark.parametrize("clip", [1.0, 0.0])
+def test_trainer_step_counts_the_update_launches(dev, monkeypatch, clip):
+    """A Trainer step on the card runs the update kernel: its step record
+    counts 2 launches with the clip and 1 without (train.optimizer_launches)."""
+    from litbox_tpu_torch.core import spans
+    from litbox_tpu_torch.nn.train import Trainer
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    tr = Trainer(_train_cfg(grad_clip=clip))
+    a, b, ref = (torch.from_numpy(x[:, :32, :32]).to(dev) for x in _stage(64))
+    for _ in range(2):
+        tr.train_batch_pair_async(a, b, ref)
+    torch.cuda.synchronize()
+    record = spans.step_records()[-1]
+    assert record.kind == "train.step"
+    assert record.counts["train.optimizer_launches"] == (2 if clip else 1)
+    assert int(tr.optimizer.state["count"]) == int(tr.optimizer.state["schedule_count"]) == 2
 
 
 def test_pair_training_is_sync_free(dev, monkeypatch):

@@ -361,6 +361,38 @@ def test_port_checkpoint_resumes_in_jax(tmp_path, pair):
     assert abs(ours - theirs) <= STEP_TOL * abs(theirs)
 
 
+def test_resume_matches_the_uninterrupted_run(tmp_path):
+    """Save after two steps and load into a Trainer that has stepped already
+    (its optimizer's tensors in use): load copies into the optimizer's own
+    tensors, which the card's update kernel keeps pointers to, and the next
+    step gives the uninterrupted run's parameters, moments and counts bit
+    for bit."""
+    _, tcfg = _configs(dict(MONO, lr_decay_steps=10, warmup_steps=2))
+    run = ttrain.Trainer(tcfg, device="cpu")
+    batches = [_batch(20 + i, 2, 1) for i in range(3)]
+    for x, y in batches[:2]:
+        run.train_batch_async(x, y)
+    path = str(tmp_path / "resume" / "model.npz")
+    run.save(path)
+    resumed = ttrain.Trainer(tcfg, device="cpu")
+    resumed.train_batch_async(*_batch(30, 2, 1))
+    st = resumed.optimizer.state
+    held = [st["count"], st["schedule_count"], *st["mu"].values(), *st["nu"].values()]
+    resumed.load(path)
+    assert all(a is b for a, b in zip(held, [st["count"], st["schedule_count"],
+                                             *st["mu"].values(), *st["nu"].values()]))
+    assert int(st["count"]) == int(st["schedule_count"]) == 2
+    for tr in (run, resumed):
+        tr.train_batch_async(*batches[2])
+    for name, t in run.model.state_dict().items():
+        assert torch.equal(resumed.model.state_dict()[name], t), name
+    for key in ("count", "schedule_count"):
+        assert torch.equal(st[key], run.optimizer.state[key])
+    for moment in ("mu", "nu"):
+        for k, t in run.optimizer.state[moment].items():
+            assert torch.equal(st[moment][k], t), (moment, k)
+
+
 # A layer's sample std has a standard error of about 1/sqrt(2 n) of itself:
 # layers of at least 3200 values are held alone to 5% (4 standard errors);
 # the smaller ones are pooled, each value over its layer's sqrt(1/fan_in).
