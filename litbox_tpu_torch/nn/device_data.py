@@ -18,6 +18,10 @@ Each sampler is a draw function (`draw`, the per-item random numbers from a
 explicit draws (`sample_batch_from`, `sample_batch_pair_from`), so the
 same draws can be given to another implementation. Nothing goes through
 the host: a step's batch costs no host sync.
+
+`DeviceStages.sample` and `sample_pair` record the span `data.sample` (the
+host's issue of the draws and gathers; core/spans.py) and the counter
+`data.sample_bytes` (the bytes of the tensors they return).
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from ..core import spans
 
 
 def stack_stage(paths_a, paths_b, paths_ref, scales) -> tuple:
@@ -147,9 +153,15 @@ class DeviceStages:
     def sample(self, name: str, generator: torch.Generator, batch: int, crop: int,
                rgb: bool, n2n_p: float = 0.0):
         a, b, r = self.data[name]
-        return sample_batch(a, b, r, generator, batch, crop, rgb, n2n_p)
+        with spans.span("data.sample"):
+            out = sample_batch(a, b, r, generator, batch, crop, rgb, n2n_p)
+        spans.count("data.sample_bytes", sum(x.nbytes for x in out))
+        return out
 
     def sample_pair(self, name: str, generator: torch.Generator, batch: int, crop: int,
                     rgb: bool, identity_p: float = 0.0):
         a, b, r = self.data[name]
-        return sample_batch_pair(a, b, r, generator, batch, crop, rgb, identity_p)
+        with spans.span("data.sample"):
+            out = sample_batch_pair(a, b, r, generator, batch, crop, rgb, identity_p)
+        spans.count("data.sample_bytes", sum(x.nbytes for x in out))
+        return out

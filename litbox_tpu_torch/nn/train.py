@@ -24,7 +24,9 @@ PyTorch's own convolution kernels instead of cuDNN's (see there).
 A step is the step span `train.step` (core/spans.py) around `train.forward`,
 `train.backward`, `train.optimizer` (with the counter
 `train.optimizer_launches`: the update kernel's launches) and, where the
-loss is read, `train.loss_read`; `select_random_channel` records
+loss is read, `train.loss_read`; inside `train.forward`, `pair_loss`
+records `train.compose` around what follows the net (the k projection,
+the display and both losses); `select_random_channel` records
 `data.channel` and the copy to the device `train.h2d`, with its bytes in
 `train.h2d_bytes`.
 
@@ -232,19 +234,21 @@ class Trainer:
         a, b, ref = self._tensor(a), self._tensor(b), self._tensor(ref)
         nb = a.shape[0]
         pred = self._net(torch.cat([a, b]))
-        out_a, out_b = pred[:nb], pred[nb:]
-        d_a, d_b = out_a - a, out_b - b
-        dbar = (d_a + d_b) * 0.5
-        x = (a + b) * 0.5
-        axes = tuple(range(1, a.ndim))
-        with torch.no_grad():
-            num = ((d_a - d_b) * (b - a)).sum(axes) * 0.25
-            den = (dbar * dbar).sum(axes)
-            k = torch.clamp(num / torch.clamp(den, min=1e-12), 0.0, 1.0)
-        disp = x + k.reshape((-1,) + (1,) * (a.ndim - 1)) * dbar
-        loss = hdr_loss(disp, ref, cfg.loss)
-        if cfg.raw_loss_weight:
-            loss = loss + cfg.raw_loss_weight * hdr_loss((out_a + out_b) * 0.5, ref, cfg.loss)
+        with spans.span("train.compose"):
+            out_a, out_b = pred[:nb], pred[nb:]
+            d_a, d_b = out_a - a, out_b - b
+            dbar = (d_a + d_b) * 0.5
+            x = (a + b) * 0.5
+            axes = tuple(range(1, a.ndim))
+            with torch.no_grad():
+                num = ((d_a - d_b) * (b - a)).sum(axes) * 0.25
+                den = (dbar * dbar).sum(axes)
+                k = torch.clamp(num / torch.clamp(den, min=1e-12), 0.0, 1.0)
+            disp = x + k.reshape((-1,) + (1,) * (a.ndim - 1)) * dbar
+            loss = hdr_loss(disp, ref, cfg.loss)
+            if cfg.raw_loss_weight:
+                raw = hdr_loss((out_a + out_b) * 0.5, ref, cfg.loss)
+                loss = loss + cfg.raw_loss_weight * raw
         return loss
 
     def gradients(self, loss_fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:

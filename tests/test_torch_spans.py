@@ -23,6 +23,7 @@ from litbox_tpu_torch.core.types import Realtime1080pProfile
 from litbox_tpu_torch.engine import Mode, Simulation, realtime
 from litbox_tpu_torch.io.exr import write_exr_rgb
 from litbox_tpu_torch.nn.dataset import DenoiserDataset
+from litbox_tpu_torch.nn.device_data import DeviceStages
 from litbox_tpu_torch.nn.train import TrainConfig, Trainer
 from litbox_tpu_torch.nn.unet import LitboxDenoiserNet, TransformConfig
 from litbox_tpu_torch.scene import SceneBuilder, rasterize
@@ -175,6 +176,46 @@ def test_trainer_step_spans_and_counters(tmp_path):
     assert 15 * r.counts["train.h2d_bytes"] == 2 * r.counts["data.batch_bytes"]
     # The async step has the same spans but no loss read.
     trainer.train_batch_async(x, y)
+    assert {s.name for s in spans.step_records()[-1].spans} == {
+        "train.forward", "train.backward", "train.optimizer", "train.step"}
+
+
+def test_pair_step_spans_and_counters():
+    """The round-5 pair step: DeviceStages.sample_pair records data.sample
+    and the bytes it returns, Trainer.pair_loss records train.compose inside
+    train.forward; a mono step records neither. sample_ms.pair reads the
+    window's data.sample."""
+    trainer = Trainer(TrainConfig(**TINY, rgb=True, global_residual=True,
+                                  pair_composition=True), device="cpu")
+    rng = np.random.default_rng(4)
+    stages = DeviceStages({"Final": tuple(rng.uniform(0.1, 2.0, (3, 24, 24, 3)).astype(np.float32)
+                                          for _ in range(3))}, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    crop = TINY["crop_size"]
+    spans.reset()
+    batches = []
+    for _ in range(3):
+        batches.append(stages.sample_pair("Final", gen, 2, crop, True, identity_p=0.5))
+        trainer.train_batch_pair_async(*batches[-1])
+    records = spans.step_records()
+    assert len(records) == 3
+    r = records[-1]
+    assert {s.name for s in r.spans} == {"data.sample", "train.forward", "train.compose",
+                                         "train.backward", "train.optimizer", "train.step"}
+    parents = {s.name: s.parent for s in r.spans}
+    assert parents["train.compose"] == "train.forward" and parents["data.sample"] is None
+    compose, forward = r.find("train.compose"), r.find("train.forward")
+    assert forward.start_ns <= compose.start_ns <= compose.end_ns <= forward.end_ns
+    assert r.counts["data.sample_bytes"] == sum(x.nbytes for x in batches[-1])
+    assert r.counts["data.sample_bytes"] == 3 * 2 * crop ** 2 * 3 * 4
+    x, y = stages.sample("Final", gen, 2, crop, False)
+    assert spans.counters()["data.sample_bytes"] == 3 * r.counts["data.sample_bytes"] + 2 * x.nbytes
+    assert _reader("sample_ms.pair").read({"steps": 2}) == pytest.approx(float(np.median(
+        [q.host_ms("data.sample") for q in records[-2:]])))
+    assert _reader("sample_ms.pair").read({}) is None
+    mono = Trainer(TrainConfig(**TINY), device="cpu")
+    spans.reset()
+    mono.train_batch_async(x, y)
     assert {s.name for s in spans.step_records()[-1].spans} == {
         "train.forward", "train.backward", "train.optimizer", "train.step"}
 
