@@ -223,8 +223,9 @@ from litbox_tpu_torch.nn import train
 from litbox_tpu_torch.nn.dataset import build_curriculum
 from litbox_tpu_torch.nn.device_data import DeviceStages, stack_stage
 from litbox_tpu_torch.nn.loss import HdrLossConfig, hdr_loss
-from litbox_tpu_torch.nn.unet import LitboxDenoiserNet, TransformConfig, init_weights
+from litbox_tpu_torch.nn.unet import LitboxDenoiserNet, TransformConfig, conv_shapes, init_weights
 from litbox_tpu_torch.ops import adam, attnscan, cuda_lib, rotate
+from litbox_tpu_torch.ops import conv as conv_kernels
 from litbox_tpu_torch.parallel import train_sharded as parallel_train
 from litbox_tpu_torch.parallel import world as par_world
 from litbox_tpu_torch.prof import microops, rotfused
@@ -268,6 +269,12 @@ KERNELS = {
     # without it, bit for bit.
     "adam_update": dict(source="litbox_tpu_torch/csrc/adam.cu",
                         replaces="none (optax on XLA: litbox_tpu/nn/train.py)", tol=1e-5),
+    # The training step's convolutions: no TPU kernel (XLA's). Each output
+    # (y, dx, dw, db) is held to float64 within twice the distance of
+    # PyTorch's own float32 path (conv_layers).
+    "conv2d": dict(source="litbox_tpu_torch/csrc/conv.cu",
+                   replaces="none (XLA's convolutions: litbox_tpu/nn/unet.py)",
+                   tol="2 x PyTorch's float32 distance from float64"),
 }
 # K4's cost split: up to 384 images summed in order in the kernels, in
 # PyTorch's order in the plain versions.
@@ -283,7 +290,7 @@ for _name, _line in MICROOPS.items():
     KERNELS[_name] = dict(source="litbox_tpu_torch/csrc/prof_microops.cu",
                           replaces=f"runs/prof_microops.py:{_line}", tol=0.0)
 COUNTERS = {"attenuation_scan_rows": attnscan.attenuation_scan_rows,
-            "adam_update": adam.adam_update,
+            "adam_update": adam.adam_update, "conv2d": conv_kernels.conv2d,
             "shear": rotate.shear, "shear_reduce": rotate.shear_reduce,
             "rotate_planar_sum_fused": rotate.rotate_planar_sum_fused,
             **{name: getattr(rotfused, name) for name in SPLIT},
@@ -2195,6 +2202,110 @@ def _on_card_step(name: str, root: Path, ckpt: str, failures: list, **kw) -> dic
                 last_blend=None if acc.last_blend is None else float(acc.last_blend))
 
 
+def _conv_counts(name: str, before: int, failures: list) -> dict:
+    """The convolutions of the last TRAIN_STEPS steps: the kernels'
+    launches (each direction, since conv2d.launches read `before`) and the
+    step records' train.conv_kernel and train.conv_fallback a step (one a
+    call); a fallback or a step with no kernel call fails."""
+    records = spans.step_records()[-TRAIN_STEPS:]
+    launches = conv_kernels.conv2d.launches - before
+    kernel = sorted({r.counts.get("train.conv_kernel", 0) for r in records})
+    fallback = sorted({r.counts.get("train.conv_fallback", 0) for r in records})
+    if fallback != [0] or 0 in kernel:
+        failures.append(f"{name}: train.conv_kernel {kernel}, train.conv_fallback {fallback} "
+                        f"a step")
+    return dict(launches=launches, conv_kernel_per_step=kernel,
+                conv_fallback_per_step=fallback)
+
+
+# The nets of the benchmark's two training cells, as (batch, crop, net
+# arguments): unet5-train (TrainConfig()) and unet4-rgb-pair-train (the
+# round-5 recipe, 2 x 16 items through the net).
+CONV_NETS = {"unet5": (4, 256, dict(unet_size=5, initial_features=32)),
+             "pair": (32, 192, dict(unet_size=4, initial_features=16, global_residual=True,
+                                    out_channels=3))}
+
+
+def _conv_directions(fn, x, w, b, pad, gy) -> list:
+    """(y, dx, dw, db) of fn(x, w, b, padding=pad) with autograd."""
+    x, w, b = (t.detach().requires_grad_() for t in (x, w, b))
+    y = fn(x, w, b, padding=pad)
+    return [y.detach(), *torch.autograd.grad(y, (x, w, b), gy)]
+
+
+def conv_layers(failures: list, nets=tuple(CONV_NETS)) -> list:
+    """Each distinct convolution of the training cells' nets on the card
+    (N, Cin, Cout, H, W of the tensor it sees, k, padding; ops.conv's
+    kernels against PyTorch's own float32 path with cuDNN off): the forward
+    and both gradients through autograd, ms by CUDA events (median of 5), as
+    a share of FP32_OPS_PER_S; each side's largest distance from float64 on
+    the card (the same path in float64), of each output's largest magnitude;
+    the kernel's two calls equal bit for bit. A kernel further from float64
+    than twice PyTorch's path, or calls that differ, fail."""
+    rows = []
+    for net in nets:
+        batch, crop, args = CONV_NETS[net]
+        for n, cin, cout, h, w, k, pad in conv_shapes(batch, crop, crop, **args):
+            gen = torch.Generator(device="cuda").manual_seed(len(rows))
+            x = torch.randn((n, cin, h, w), device="cuda", generator=gen)
+            wt = torch.randn((cout, cin, k, k), device="cuda", generator=gen) / (cin * k * k) ** 0.5
+            b = torch.randn(cout, device="cuda", generator=gen)
+            ho, wo = h + 2 * pad - k + 1, w + 2 * pad - k + 1
+            gy = torch.randn((n, cout, ho, wo), device="cuda", generator=gen)
+            with torch.backends.cudnn.flags(enabled=False):
+                want = _conv_directions(F.conv2d, x.double(), wt.double(), b.double(), pad,
+                                        gy.double())
+                torch_out = _conv_directions(F.conv2d, x, wt, b, pad, gy)
+                torch_ms = time_ms(lambda: _conv_directions(F.conv2d, x, wt, b, pad, gy), reps=5)
+            kern = _conv_directions(conv_kernels.conv2d, x, wt, b, pad, gy)
+            again = _conv_directions(conv_kernels.conv2d, x, wt, b, pad, gy)
+            kern_ms = time_ms(lambda: _conv_directions(conv_kernels.conv2d, x, wt, b, pad, gy),
+                              reps=5)
+            # Each direction alone, as the kernels' launches (and the
+            # weight's layout copy) run it.
+            direction_ms = [
+                time_ms(lambda: conv_kernels._forward(x, wt, b, pad), reps=5),
+                time_ms(lambda: conv_kernels._data_grad(gy, wt, x.shape, pad), reps=5),
+                time_ms(lambda: conv_kernels._weight_grad(x, gy, wt.shape, pad, True), reps=5)]
+
+            def dist(got):
+                return [float((g.double() - r).abs().max() / r.abs().max())
+                        for g, r in zip(got, want)]
+
+            flop = 3 * 2 * n * ho * wo * cout * cin * k * k
+            row = dict(net=net, shape=[n, cin, cout, h, w, k, pad], flop=flop,
+                       kernel_ms=kern_ms, torch_ms=torch_ms, kernel_direction_ms=direction_ms,
+                       kernel_share=flop / (kern_ms / 1e3) / FP32_OPS_PER_S,
+                       torch_share=flop / (torch_ms / 1e3) / FP32_OPS_PER_S,
+                       kernel_vs_f64=dist(kern), torch_vs_f64=dist(torch_out),
+                       repeats=all(torch.equal(a, b) for a, b in zip(kern, again)))
+            if not row["repeats"]:
+                failures.append(f"conv {net} {row['shape']}: two calls differ")
+            if any(kd > 2 * td for kd, td in zip(row["kernel_vs_f64"], row["torch_vs_f64"])):
+                failures.append(f"conv {net} {row['shape']}: kernel {row['kernel_vs_f64']} "
+                                f"from float64, PyTorch's {row['torch_vs_f64']}")
+            rows.append(row)
+            del x, wt, b, gy, want, torch_out, kern, again
+    torch.cuda.empty_cache()
+    return rows
+
+
+def conv_cases(rows: list) -> list:
+    """The kernels line's cases of conv2d from conv_layers' rows: the
+    forward and both gradients, ms against the least time of their
+    operations (2 N Ho Wo Cout Cin k^2 a direction) at FP32_OPS_PER_S, and
+    PyTorch's own path (cuDNN off) on the same inputs."""
+    cases = []
+    for r in rows:
+        b, by = bound(0, r["flop"])
+        cases.append(dict(shape=f"{r['net']} {r['shape']}", ms=r["kernel_ms"], bound_ms=b,
+                          bound_by=by, share=b / r["kernel_ms"], plain_ms=r["torch_ms"],
+                          ratio_to_plain=r["kernel_ms"] / r["torch_ms"],
+                          direction_ms=r["kernel_direction_ms"],
+                          max_rel_err=r["kernel_vs_f64"], plain_rel_err=r["torch_vs_f64"]))
+    return cases
+
+
 def _update_launches(name: str, before: int, failures: list) -> dict:
     """The optimizer's kernel over the last TRAIN_STEPS steps: its launches
     (2 a step, the clip on), the step records' `train.optimizer_launches`
@@ -2223,13 +2334,14 @@ def _mono(root: Path, failures: list) -> dict:
         failures.append("mono: the Trainer is not on the card")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    before = adam.adam_update.launches
+    before, conv_before = adam.adam_update.launches, conv_kernels.conv2d.launches
     with contextlib.redirect_stdout(io.StringIO()):
         log = trainer.fit(curriculum, log_every=0.0, max_steps=TRAIN_STEPS)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated()
     update = _update_launches("mono", before, failures)
+    convs = _conv_counts("mono", conv_before, failures)
     losses = [e["loss"] for e in log]
     _losses_ok("mono", losses, failures)
     if trainer.global_step != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
@@ -2273,7 +2385,7 @@ def _mono(root: Path, failures: list) -> dict:
                 grad_vs_cpu=dict(max_abs_err=grad_err, max_abs=scale, tol=TRAIN_GRAD_TOL,
                                  card_loss=card_loss, cpu_loss=cpu_loss, both_ms=cpu_ms),
                 save_load_ms=io_ms, eval_equal_after_load=same, from_checkpoint=accel,
-                update=update)
+                update=update, convolutions=convs)
 
 
 def _r5_config(steps: int) -> "train.TrainConfig":
@@ -2313,12 +2425,13 @@ def _pair(root: Path, failures: list) -> dict:
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    before = adam.adam_update.launches
+    before, conv_before = adam.adam_update.launches, conv_kernels.conv2d.launches
     syncs = host_syncs(steps)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated()
     update = _update_launches("pair", before, failures)
+    convs = _conv_counts("pair", conv_before, failures)
     if syncs:
         failures.append(f"pair: the step loop made the host wait at {sorted(set(syncs))}")
     if any(x.device.type != "cuda" for x in losses):
@@ -2356,12 +2469,14 @@ def _pair(root: Path, failures: list) -> dict:
                 fp32_peak_share=flop / (ms / 1e3) / FP32_OPS_PER_S,
                 peak_memory_bytes=peak, loss_first=losses[0], loss_last=losses[-1],
                 host_syncs_in_loop=len(syncs), lr_at=got, checkpoint_round_trip=same,
-                from_checkpoint=accel, update=update)
+                from_checkpoint=accel, update=update, convolutions=convs)
 
 
 def train_phase() -> dict:
     """corpus, mono and pair, with TF32 off; the corpus and checkpoints live
-    in a directory of the checkout, removed at the end."""
+    in a directory of the checkout, removed at the end; then each distinct
+    convolution of both nets, the kernels against PyTorch's path
+    (conv_layers)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     failures = []
@@ -2374,15 +2489,19 @@ def train_phase() -> dict:
         pair = _pair(CORPUS_DIR, failures)
     finally:
         shutil.rmtree(CORPUS_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    layers = conv_layers(failures)
     tf32 = dict(matmul=torch.backends.cuda.matmul.allow_tf32,
                 cudnn=torch.backends.cudnn.allow_tf32)
     if any(tf32.values()):
         failures.append(f"train: TF32 was turned on during the phase: {tf32}")
     if failures:
         raise AssertionError("; ".join(failures))
-    return dict(allow_tf32=tf32, corpus=corpus, mono=mono, pair=pair,
+    return dict(allow_tf32=tf32, corpus=corpus, mono=mono, pair=pair, conv_layers=layers,
                 launches=dict(corpus["launches"], adam_update=mono["update"]["launches"]
-                              + pair["update"]["launches"]))
+                              + pair["update"]["launches"],
+                              conv2d=mono["convolutions"]["launches"]
+                              + pair["convolutions"]["launches"]))
 
 
 # Dataset generation (the data phase): runs/gen_dataset_r2.py's recipe
@@ -2916,6 +3035,7 @@ def _par_train(counted: _PathCounts, failures: list) -> dict:
     base = torch.cuda.memory_allocated()
     run, params, stats, opt = parallel_train.build_sharded_train_step(mesh, **PAR_TRAIN)
     losses, ms = [], []
+    fallbacks = spans.counters().get("train.conv_fallback", 0)
     with counted.path():
         for _ in range(PAR_TRAIN_STEPS):
             (params, stats, opt, loss), step_ms = _read_ms(
@@ -2923,6 +3043,9 @@ def _par_train(counted: _PathCounts, failures: list) -> dict:
             losses.append(float(loss))
             ms.append(step_ms)
     peak = torch.cuda.max_memory_allocated() - base
+    fallbacks = spans.counters().get("train.conv_fallback", 0) - fallbacks
+    if fallbacks:
+        failures.append(f"parallel train: {fallbacks} convolutions took PyTorch's path")
     n_params = sum(p.numel() for p in params.values())
     del run, params, stats, opt
     net = LitboxDenoiserNet(unet_size=PAR_TRAIN["unet_size"],
@@ -2939,7 +3062,7 @@ def _par_train(counted: _PathCounts, failures: list) -> dict:
     return dict(PAR_TRAIN, crop=crop, mesh=par_world.mesh_shape(mesh), params_on_rank=n_params,
                 losses=losses, unsharded_first_loss=ref, first_loss_rel=rel,
                 first_step_ms=ms[0], ms_per_step=statistics.mean(ms[1:]),
-                peak_above_start_bytes=peak)
+                peak_above_start_bytes=peak, conv_fallbacks=fallbacks)
 
 
 def parallel_rank() -> dict:
@@ -2961,12 +3084,13 @@ def parallel_rank() -> dict:
 def parallel_phase() -> dict:
     """litbox_tpu_torch/parallel/ on a world of every visible card with
     NCCL: the data-parallel oracle and RBT, the bin-sharded RBT and the
-    sharded training step (parallel_rank). K1-K3 and the optimizer's update
-    kernel must be launched by the sharded calls."""
+    sharded training step (parallel_rank). K1-K3, the optimizer's update
+    kernel and the convolution kernels must be launched by the sharded
+    calls."""
     n = torch.cuda.device_count()
     reset_counts()
     out = par_world.run(parallel_rank, n, device="cuda", inline_rank0=True, timeout=300)[0]
-    if missing := unlaunched(out["launches"], RESOLVE_KERNELS + ("adam_update",)):
+    if missing := unlaunched(out["launches"], RESOLVE_KERNELS + ("adam_update", "conv2d")):
         raise AssertionError(f"parallel: kernels of the path were not launched: {missing}")
     return dict(world_size=n, backend=par_world.backend_for("cuda"), **out)
 
@@ -3293,6 +3417,7 @@ def main() -> None:
     trn = train_phase()
     phase("train", t0)
     print(json.dumps({"train": trn}))
+    measured["conv2d"] = conv_cases(trn["conv_layers"])
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -3354,7 +3479,7 @@ def main() -> None:
              "parallel": par["launches"],
              "rotfused_split": split_launches,
              "microops": micro_launches}
-    drives = {"rotate_planar_sum_fused": "fused_resolve", "adam_update": "train",
+    drives = {"rotate_planar_sum_fused": "fused_resolve", "adam_update": "train", "conv2d": "train",
               **{name: "rotfused_split" for name in SPLIT},
               **{name: "microops" for name in MICROOPS}}
     rows = []

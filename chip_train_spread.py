@@ -30,8 +30,9 @@ trained weights from the mode's first trial. --corpora K writes the corpus
 K times (the trials run on each). --precision also takes the gradients in
 float64 on the CPU, at the same weights and batch, and gives each of
 these its distance from them, of the same scale: the card in float32 as
-the gate takes it (Trainer.gradients: PyTorch's own convolutions), the
-card in float32 on cuDNN's convolutions, and again with
+the gate takes it (Trainer.gradients: the port's convolution kernels), the
+card in float32 on PyTorch's own convolutions with cuDNN off, on cuDNN's
+convolutions, and again with
 cudnn.conv.fp32_precision "ieee", the card in float64 and the CPU in
 float32; with each, the parameter that holds the largest difference; and
 the time of one such loss and backward on the card, through the Trainer
@@ -67,16 +68,21 @@ def _emit(record: dict) -> None:
         f.write(line + "\n")
 
 
-def _grads(trainer, device: str, x, y, dtype: torch.dtype, cudnn: bool = False) -> dict:
-    """The gate's gradients (smoke._twin_grads: Trainer.gradients) in
-    `dtype`, or with `cudnn` the loss and its backward on cuDNN's
-    convolutions; returned in float64 on the CPU."""
+def _grads(trainer, device: str, x, y, dtype: torch.dtype, cudnn: bool | None = False) -> dict:
+    """The gate's gradients (smoke._twin_grads: Trainer.gradients, whose
+    convolutions on a card are the port's kernels) in `dtype`; with `cudnn`
+    True the loss and its backward on cuDNN's convolutions, with None on
+    PyTorch's own with cuDNN off (the steps' path before the kernels);
+    returned in float64 on the CPU."""
     twin = copy.copy(trainer)
     twin.model = copy.deepcopy(trainer.model).to(device=device, dtype=dtype)
     twin.params = dict(twin.model.named_parameters())
     twin.device = torch.device(device)
     twin._tensor = lambda a: torch.as_tensor(a).to(device=device, dtype=dtype)
-    if cudnn:
+    if cudnn is None:
+        with torch.backends.cudnn.flags(enabled=False):
+            twin.loss(x, y).backward()
+    elif cudnn:
         with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                         deterministic=torch.backends.cudnn.deterministic,
                                         allow_tf32=False):
@@ -134,6 +140,7 @@ def _precision(trainer, x, y) -> dict:
             torch.cuda.synchronize()
         ms["cudnn" if cudnn else "trainer"] = (time.perf_counter() - t0) * 1e3
     ways = dict(card_f32=("cuda", torch.float32, False),
+                card_f32_pytorch=("cuda", torch.float32, None),
                 card_f32_cudnn=("cuda", torch.float32, True),
                 card_f64=("cuda", torch.float64, False),
                 cpu_f32=("cpu", torch.float32, False))

@@ -19,7 +19,7 @@ it; `train_batch` and `fit` read the loss each step, as the JAX package's
 do.
 
 A step's forward and backward run under `step_convolutions`: on a card,
-PyTorch's own convolution kernels instead of cuDNN's (see there).
+the port's convolution kernels (`ops.conv`) instead of cuDNN's (see there).
 
 A step is the step span `train.step` (core/spans.py) around `train.forward`,
 `train.backward`, `train.optimizer` (with the counter
@@ -52,7 +52,7 @@ import torch
 
 from .. import convert
 from ..core import spans
-from ..ops import adam
+from ..ops import adam, conv
 from .dataset import DenoiserDataset
 from .loss import HdrLossConfig, hdr_loss
 from .unet import (LitboxDenoiserNet, TransformConfig, init_weights, post_transform,
@@ -62,19 +62,24 @@ from .unet import (LitboxDenoiserNet, TransformConfig, init_weights, post_transf
 @contextlib.contextmanager
 def step_convolutions(device: str | torch.device):
     """The convolutions of a training step's forward and backward: on a
-    CUDA device, PyTorch's own kernels (cuDNN off, restored on exit);
-    elsewhere nothing changes. In float32 on HDR crops, cuDNN's gradients
-    of TrainConfig()'s net strayed up to 1.15e-3 of the largest gradient
-    from float64 (the first residual block's conv1 weight, on an H100),
-    PyTorch's 0.7-1.4e-5. The backward picks its kernels when it runs, so
-    the loss's backward belongs inside too. Inference keeps cuDNN."""
+    CUDA device, the port's float32 kernels (`ops.conv`, through the net's
+    `StepConv2d`s) and, in a dtype they have no kernel for (a float64 twin
+    of the step), PyTorch's own with cuDNN off (restored on exit);
+    elsewhere nothing changes. In float32 on HDR
+    crops, cuDNN's gradients of TrainConfig()'s net strayed up to 1.15e-3
+    of the largest gradient from float64 (the first residual block's conv1
+    weight, on an H100); the kernels stay within twice PyTorch's own
+    float32 distance layer by layer. The backward picks its kernels when
+    it runs, so the loss's backward belongs inside too. Inference keeps
+    cuDNN."""
     if torch.device(device).type != "cuda":
         yield
         return
     saved = torch.backends.cudnn.enabled
     torch.backends.cudnn.enabled = False
     try:
-        yield
+        with conv.routed():
+            yield
     finally:
         torch.backends.cudnn.enabled = saved
 

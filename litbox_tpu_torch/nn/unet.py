@@ -35,7 +35,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import conv
+
 _PAD_MODES = {"reflect": "reflect", "zeros": "constant", "replicate": "replicate"}
+
+
+class StepConv2d(nn.Conv2d):
+    """nn.Conv2d whose convolution goes through `ops.conv.convolve`: inside
+    a training step on a card (nn.train.step_convolutions) the port's
+    kernels in float32, anywhere else nn.Conv2d's own."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv.convolve(self, x)
 
 
 class Conv3x3(nn.Module):
@@ -44,7 +55,7 @@ class Conv3x3(nn.Module):
     def __init__(self, in_channels: int, features: int, padding_mode: str = "reflect"):
         super().__init__()
         self.pad_mode = _PAD_MODES[padding_mode]
-        self.conv = nn.Conv2d(in_channels, features, 3)
+        self.conv = StepConv2d(in_channels, features, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(F.pad(x, (1, 1, 1, 1), mode=self.pad_mode))
@@ -71,7 +82,7 @@ class ResidualBlock(nn.Module):
         self.bn1 = FlaxBatchNorm2d(features, eps=1e-5)
         self.conv2 = Conv3x3(features, features, padding_mode)
         self.bn2 = FlaxBatchNorm2d(features, eps=1e-5)
-        self.shortcut = (nn.Conv2d(in_channels, features, 1)
+        self.shortcut = (StepConv2d(in_channels, features, 1)
                          if in_channels != features else None)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -147,7 +158,7 @@ class LitboxDenoiserNet(nn.Module):
             c //= 2
             self.add_module(f"skip{i}a", ResidualBlock(2 * c, c, pm))
             self.add_module(f"skip{i}b", ResidualBlock(c, c, pm))
-        self.conv_out = (nn.Conv2d(c, out_channels, 3, padding=1) if global_residual
+        self.conv_out = (StepConv2d(c, out_channels, 3, padding=1) if global_residual
                          else Conv3x3(c, out_channels, "zeros"))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -174,6 +185,29 @@ class LitboxDenoiserNet(nn.Module):
         if self.use_sigmoid:
             y = torch.sigmoid(y)
         return y.permute(0, 2, 3, 1)
+
+
+def conv_shapes(batch: int, height: int, width: int, **net_args) -> list[tuple]:
+    """Each distinct convolution of a training forward of
+    LitboxDenoiserNet(**net_args) on (batch, height, width, C), in the order
+    of first use: (N, Cin, Cout, H, W, k, padding), H and W those of the
+    tensor the convolution sees (padded by Conv3x3 where it pads). Traced on
+    the meta device."""
+    net = LitboxDenoiserNet(**net_args).to("meta")
+    shapes = []
+
+    def record(module, args, _out):
+        n, c, h, w = args[0].shape
+        shape = (n, c, module.out_channels, h, w, module.kernel_size[0], module.padding[0])
+        if shape not in shapes:
+            shapes.append(shape)
+
+    for m in net.modules():
+        if isinstance(m, StepConv2d):
+            m.register_forward_hook(record)
+    x = torch.empty((batch, height, width, net.conv_in.conv.in_channels), device="meta")
+    net(x, train=True)
+    return shapes
 
 
 # Flax's lecun_normal: a normal truncated at two standard deviations, scaled

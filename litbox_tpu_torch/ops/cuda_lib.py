@@ -51,6 +51,8 @@ _SIGNATURES = {
     "litbox_prof_flip2": [_P] * 2 + [_I] * 2 + [_P],
     "litbox_adam_norm": [_P, _I, _P, _L, _P, _I, _P],
     "litbox_adam_update": [_P, _I, _P, _L, _P, _I] + [_P] * 3 + [_F] * 8 + [_P],
+    "litbox_conv_fwd": [_P] * 6 + [_I] * 12 + [_P],
+    "litbox_conv_wgrad": [_P] * 5 + [_I] * 10 + [_P],
 }
 
 
