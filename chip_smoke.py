@@ -223,7 +223,8 @@ from litbox_tpu_torch.nn import train
 from litbox_tpu_torch.nn.dataset import build_curriculum
 from litbox_tpu_torch.nn.device_data import DeviceStages, stack_stage
 from litbox_tpu_torch.nn.loss import HdrLossConfig, hdr_loss
-from litbox_tpu_torch.nn.unet import LitboxDenoiserNet, TransformConfig, conv_shapes, init_weights
+from litbox_tpu_torch.nn.unet import (LitboxDenoiserNet, StepConv2d, TransformConfig, conv_shapes,
+                                      init_weights)
 from litbox_tpu_torch.ops import adam, attnscan, cuda_lib, rotate
 from litbox_tpu_torch.ops import conv as conv_kernels
 from litbox_tpu_torch.parallel import train_sharded as parallel_train
@@ -2205,25 +2206,25 @@ def _on_card_step(name: str, root: Path, ckpt: str, failures: list, **kw) -> dic
 def _conv_counts(name: str, before: int, failures: list) -> dict:
     """The convolutions of the last TRAIN_STEPS steps: the kernels'
     launches (each direction, since conv2d.launches read `before`) and the
-    step records' train.conv_kernel and train.conv_fallback a step (one a
-    call); a fallback or a step with no kernel call fails."""
+    step records' train.conv_kernel a step (one a call the kernels
+    served); a step with no kernel call fails."""
     records = spans.step_records()[-TRAIN_STEPS:]
     launches = conv_kernels.conv2d.launches - before
     kernel = sorted({r.counts.get("train.conv_kernel", 0) for r in records})
-    fallback = sorted({r.counts.get("train.conv_fallback", 0) for r in records})
-    if fallback != [0] or 0 in kernel:
-        failures.append(f"{name}: train.conv_kernel {kernel}, train.conv_fallback {fallback} "
-                        f"a step")
-    return dict(launches=launches, conv_kernel_per_step=kernel,
-                conv_fallback_per_step=fallback)
+    if 0 in kernel:
+        failures.append(f"{name}: train.conv_kernel {kernel} a step")
+    return dict(launches=launches, conv_kernel_per_step=kernel)
 
 
-# The nets of the benchmark's two training cells, as (batch, crop, net
-# arguments): unet5-train (TrainConfig()) and unet4-rgb-pair-train (the
-# round-5 recipe, 2 x 16 items through the net).
+# The nets whose training steps the card runs here, as (batch, crop, net
+# arguments): unet5-train (TrainConfig()), unet4-rgb-pair-train (the
+# round-5 recipe, 2 x 16 items through the net) and the parallel phase's
+# sharded step (PAR_TRAIN at PAR_CROP; on one card each channel slice is the
+# whole layer, so its convolutions are the unsharded net's at crop 64).
 CONV_NETS = {"unet5": (4, 256, dict(unet_size=5, initial_features=32)),
              "pair": (32, 192, dict(unet_size=4, initial_features=16, global_residual=True,
-                                    out_channels=3))}
+                                    out_channels=3)),
+             "par": (4, 64, dict(unet_size=5, initial_features=32))}
 
 
 def _conv_directions(fn, x, w, b, pad, gy) -> list:
@@ -2234,7 +2235,7 @@ def _conv_directions(fn, x, w, b, pad, gy) -> list:
 
 
 def conv_layers(failures: list, nets=tuple(CONV_NETS)) -> list:
-    """Each distinct convolution of the training cells' nets on the card
+    """Each distinct convolution of CONV_NETS on the card
     (N, Cin, Cout, H, W of the tensor it sees, k, padding; ops.conv's
     kernels against PyTorch's own float32 path with cuDNN off): the forward
     and both gradients through autograd, ms by CUDA events (median of 5), as
@@ -2475,8 +2476,8 @@ def _pair(root: Path, failures: list) -> dict:
 def train_phase() -> dict:
     """corpus, mono and pair, with TF32 off; the corpus and checkpoints live
     in a directory of the checkout, removed at the end; then each distinct
-    convolution of both nets, the kernels against PyTorch's path
-    (conv_layers)."""
+    convolution of CONV_NETS (both cells' nets and the parallel phase's),
+    the kernels against PyTorch's path (conv_layers)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     failures = []
@@ -2853,6 +2854,9 @@ PAR_BINS_SEED = 11
 PAR_BINS_FRAMES = 4     # timed frames after the checked one
 PAR_TRAIN = dict(unet_size=5, initial_features=32, batch=4)  # the defaults
 PAR_CROP = 64  # the crop of the JAX function's default, which only sizes its init
+# conv_layers holds the sharded step's convolutions at these shapes.
+assert CONV_NETS["par"] == (PAR_TRAIN["batch"], PAR_CROP,
+                            {k: v for k, v in PAR_TRAIN.items() if k != "batch"})
 PAR_TRAIN_STEPS = 3
 PAR_EXACT = dict(rtol=2e-4, atol=1e-6)  # tests/test_parallel.py:373 (bins vs unsharded)
 PAR_MEAN_TOL = 1e-6     # sharded_rbt_resolve vs the mean of resolve_raw, of the maximum
@@ -3023,7 +3027,8 @@ def _par_train(counted: _PathCounts, failures: list) -> dict:
     64, batch 4) for PAR_TRAIN_STEPS steps with TF32 off on the batch of
     test_sharded_train_bn_stats_are_global at crop 64: finite losses, the
     first within PAR_LOSS_TOL of an unsharded step of the port's net from
-    the same init."""
+    the same init, and every step's convolutions on the kernels (each step
+    counts one train.conv_kernel a convolution of the net)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     crop, batch = PAR_CROP, PAR_TRAIN["batch"]
@@ -3034,22 +3039,24 @@ def _par_train(counted: _PathCounts, failures: list) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     run, params, stats, opt = parallel_train.build_sharded_train_step(mesh, **PAR_TRAIN)
-    losses, ms = [], []
-    fallbacks = spans.counters().get("train.conv_fallback", 0)
+    losses, ms, kernel = [], [], []
     with counted.path():
         for _ in range(PAR_TRAIN_STEPS):
+            before = spans.counters().get("train.conv_kernel", 0)
             (params, stats, opt, loss), step_ms = _read_ms(
                 lambda: run(params, stats, opt, inputs, targets))
+            kernel.append(spans.counters().get("train.conv_kernel", 0) - before)
             losses.append(float(loss))
             ms.append(step_ms)
     peak = torch.cuda.max_memory_allocated() - base
-    fallbacks = spans.counters().get("train.conv_fallback", 0) - fallbacks
-    if fallbacks:
-        failures.append(f"parallel train: {fallbacks} convolutions took PyTorch's path")
     n_params = sum(p.numel() for p in params.values())
     del run, params, stats, opt
     net = LitboxDenoiserNet(unet_size=PAR_TRAIN["unet_size"],
                             initial_features=PAR_TRAIN["initial_features"]).cuda()
+    convs = sum(isinstance(m, StepConv2d) for m in net.modules())
+    if set(kernel) != {convs}:
+        failures.append(f"parallel train: train.conv_kernel {kernel} a step, not the net's "
+                        f"{convs} convolutions")
     init_weights(net, torch.Generator(device="cuda").manual_seed(0))
     with torch.no_grad():
         ref = float(hdr_loss(net(torch.from_numpy(inputs).cuda(), train=True),
@@ -3062,7 +3069,7 @@ def _par_train(counted: _PathCounts, failures: list) -> dict:
     return dict(PAR_TRAIN, crop=crop, mesh=par_world.mesh_shape(mesh), params_on_rank=n_params,
                 losses=losses, unsharded_first_loss=ref, first_loss_rel=rel,
                 first_step_ms=ms[0], ms_per_step=statistics.mean(ms[1:]),
-                peak_above_start_bytes=peak, conv_fallbacks=fallbacks)
+                peak_above_start_bytes=peak, conv_kernel_per_step=kernel)
 
 
 def parallel_rank() -> dict:

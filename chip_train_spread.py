@@ -15,7 +15,7 @@ its weights and the gate's probe batch the gradients are taken R times on
 the card and once on the CPU. Mode `default` leaves cuDNN as the train
 phase does (nondeterministic algorithms allowed, benchmark off); mode
 `deterministic` sets torch.backends.cudnn.deterministic (the Trainer's
-steps, off cuDNN under nn.train.step_convolutions, read it no more). --kernels-first
+steps, off cuDNN under ops.conv.step_convolutions, read it no more). --kernels-first
 runs chip_smoke.py's `kernels` phase before anything else, as the full
 smoke run does; --phases-first runs every phase that the full run runs
 before `train` (kernels, frame, pipeline, fused_resolve, production,
@@ -33,7 +33,8 @@ these its distance from them, of the same scale: the card in float32 as
 the gate takes it (Trainer.gradients: the port's convolution kernels), the
 card in float32 on PyTorch's own convolutions with cuDNN off, on cuDNN's
 convolutions, and again with
-cudnn.conv.fp32_precision "ieee", the card in float64 and the CPU in
+cudnn.conv.fp32_precision "ieee", the card in float64 on PyTorch's own
+convolutions with cuDNN off (the kernels take float32 only) and the CPU in
 float32; with each, the parameter that holds the largest difference; and
 the time of one such loss and backward on the card, through the Trainer
 and through cuDNN (a copy of the net included). Needs one CUDA device.
@@ -142,7 +143,7 @@ def _precision(trainer, x, y) -> dict:
     ways = dict(card_f32=("cuda", torch.float32, False),
                 card_f32_pytorch=("cuda", torch.float32, None),
                 card_f32_cudnn=("cuda", torch.float32, True),
-                card_f64=("cuda", torch.float64, False),
+                card_f64=("cuda", torch.float64, None),
                 cpu_f32=("cpu", torch.float32, False))
     out = {name: _distance(_grads(trainer, dev, x, y, dtype, cudnn), ref)
            for name, (dev, dtype, cudnn) in ways.items()}

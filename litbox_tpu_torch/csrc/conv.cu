@@ -46,12 +46,13 @@
 // Each thread accumulates an 8 x 8 register tile with FFMA from two float4
 // reads of each operand a depth row. Every flush depth (the direction's:
 // 128 rows, 64, or one tap's channels for the data gradient, as PyTorch
-// sums them) the tile is added to the thread's running total in shared
-// memory and restarts from zero: the float32 sums run in blocks and stay as
-// close to float64 as PyTorch's own. Where a tile is too small for
-// 256 threads (the weight gradient of thin layers), the block's threads
-// form G groups that each take 1/G of every staged slice and add their
-// tiles through shared memory in group order at the end.
+// sums them; in the weight gradient also every plane) the tile is added to
+// the thread's running total in shared memory and restarts from zero: the
+// float32 sums run in blocks and stay as close to float64 as PyTorch's own.
+// Where a tile is too small for 256 threads (the weight gradient of thin
+// layers), the block's threads form G groups that each take 1/G of every
+// staged slice and add their tiles through shared memory in group order at
+// the end.
 // The tile follows the layer's shape (the wrapper, ops/conv.py, chooses):
 // thin layers (16 or 32 output channels) cover all of them with a wide
 // strip of pixels; wide layers take 128 x 128 tiles; where the tiles are
@@ -508,8 +509,10 @@ conv_wgrad_kernel(const float* __restrict__ in, const float* __restrict__ dy,
 
   T tile;
   constexpr int kRows = BK / T::kGroups;  // depth rows a group takes a step
+  // A flush at least once a plane: PyTorch sums each image's plane apart,
+  // and a plane of a few pixels takes one step of mostly zero rows.
   run_steps<kRows, S>(tile, stage, As, BK * (BM + kPad), Bs, BK * (BN + kPad), total, kb, ke,
-                      kFlushWeightGrad / kRows);
+                      min(kFlushWeightGrad / kRows, plane_steps));
   __syncthreads();      // every group is done with the stages
   tile.add_groups(As);
   if (tile.group() != T::kGroups - 1) return;

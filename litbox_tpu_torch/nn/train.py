@@ -18,8 +18,8 @@ device, so `train_batch_async` and `train_batch_pair_async` never wait for
 it; `train_batch` and `fit` read the loss each step, as the JAX package's
 do.
 
-A step's forward and backward run under `step_convolutions`: on a card,
-the port's convolution kernels (`ops.conv`) instead of cuDNN's (see there).
+A step's forward and backward run under `ops.conv.step_convolutions`: on a
+card, the port's convolution kernels instead of cuDNN's (see there).
 
 A step is the step span `train.step` (core/spans.py) around `train.forward`,
 `train.backward`, `train.optimizer` (with the counter
@@ -39,7 +39,6 @@ the other's checkpoint.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import math
@@ -57,31 +56,6 @@ from .dataset import DenoiserDataset
 from .loss import HdrLossConfig, hdr_loss
 from .unet import (LitboxDenoiserNet, TransformConfig, init_weights, post_transform,
                    pre_transform)
-
-
-@contextlib.contextmanager
-def step_convolutions(device: str | torch.device):
-    """The convolutions of a training step's forward and backward: on a
-    CUDA device, the port's float32 kernels (`ops.conv`, through the net's
-    `StepConv2d`s) and, in a dtype they have no kernel for (a float64 twin
-    of the step), PyTorch's own with cuDNN off (restored on exit);
-    elsewhere nothing changes. In float32 on HDR
-    crops, cuDNN's gradients of TrainConfig()'s net strayed up to 1.15e-3
-    of the largest gradient from float64 (the first residual block's conv1
-    weight, on an H100); the kernels stay within twice PyTorch's own
-    float32 distance layer by layer. The backward picks its kernels when
-    it runs, so the loss's backward belongs inside too. Inference keeps
-    cuDNN."""
-    if torch.device(device).type != "cuda":
-        yield
-        return
-    saved = torch.backends.cudnn.enabled
-    torch.backends.cudnn.enabled = False
-    try:
-        with conv.routed():
-            yield
-    finally:
-        torch.backends.cudnn.enabled = saved
 
 
 @dataclasses.dataclass
@@ -257,11 +231,11 @@ class Trainer:
         return loss
 
     def gradients(self, loss_fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
-        """loss_fn(*args) and its backward under step_convolutions, with
+        """loss_fn(*args) and its backward under conv.step_convolutions, with
         each parameter's gradient in its .grad; returns the loss, detached."""
         for p in self.params.values():
             p.grad = None
-        with step_convolutions(self.device):
+        with conv.step_convolutions(self.device):
             with spans.span("train.forward"):
                 loss = loss_fn(*args)
             with spans.span("train.backward"):

@@ -42,11 +42,11 @@ _PAD_MODES = {"reflect": "reflect", "zeros": "constant", "replicate": "replicate
 
 class StepConv2d(nn.Conv2d):
     """nn.Conv2d whose convolution goes through `ops.conv.convolve`: inside
-    a training step on a card (nn.train.step_convolutions) the port's
-    kernels in float32, anywhere else nn.Conv2d's own."""
+    a training step on a card (ops.conv.step_convolutions) the port's
+    kernels, anywhere else nn.Conv2d's own."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv.convolve(self, x)
+        return conv.convolve(self, x, self.weight, self.bias)
 
 
 class Conv3x3(nn.Module):

@@ -10,22 +10,22 @@ runs over the batch. The arithmetic is float32 FFMA with float32 sums, in
 an order fixed by the shapes alone, so two calls give the same bits.
 
 The JAX package has no Pallas kernel here: its convolutions are XLA's. With
-cuDNN off in a training step (nn/train.step_convolutions), PyTorch's own
-convolution copies every item's input into columns and multiplies them one
-item at a time; those copies were the step's largest device operations.
+cuDNN off, PyTorch's own convolution copies every item's input into columns
+and multiplies them one item at a time; those copies were the step's
+largest device operations.
 
-`conv2d` is the wrapper: CPU tensors take `F.conv2d`; CUDA tensors take the
-kernels or the call raises. `convolve` is what the net's convolutions
-(`nn.unet.StepConv2d`) call: inside `routed()`, which
-`nn.train.step_convolutions` enters on a card, every float32 convolution
-off the CPU goes to `conv2d`, and raises where the kernels cannot take it;
-a convolution of another dtype (no kernel: a float64 twin of the step) or
-on the CPU takes `nn.Conv2d`'s own path. Outside `routed()`, `nn.Conv2d`'s
-own path, untouched. The counters (core/spans.py), one a call inside
-`routed()`: `train.conv_kernel`, a convolution the kernels served;
-`train.conv_fallback`, one that took PyTorch's path. `conv2d.launches`
-counts the kernel directions launched (the forward, the data gradient, the
-weight gradient).
+`step_convolutions(device)` surrounds a training step's forward and
+backward: on a CUDA device it turns cuDNN off and routes `convolve`, what
+the net's convolutions (`nn.unet.StepConv2d`, the sharded step's channel
+slices) call, to `conv2d`; elsewhere it changes nothing. `conv2d` alone
+places a call: CPU tensors take `F.conv2d`; CUDA tensors take the kernels
+or the call raises, so every convolution of the net in a step on a card
+runs the kernels (the loss's Sobel filters, nn/loss.py, are not the net's
+and keep PyTorch's own grouped convolution). Inside a step each call the
+kernels serve counts one in `train.conv_kernel` (core/spans.py). Outside
+a step, `convolve` is nn.Conv2d's own path, untouched. `conv2d.launches`
+counts the kernel directions launched (the forward, the data gradient,
+the weight gradient).
 
 The tile each launch takes follows the layer's shape (`plan_forward`,
 `plan_weight_grad`): the output channels choose a tile of 128, 64, 32 or 16
@@ -243,12 +243,17 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = No
            padding: int = 0) -> torch.Tensor:
     """F.conv2d(x, weight, bias, padding=padding) at stride 1: on CPU tensors
     F.conv2d itself; on CUDA tensors the kernels (differentiable), or the
-    call raises for what they do not take (see `_check`)."""
+    call raises for what they do not take (see `_check`), counted in
+    train.conv_kernel inside `step_convolutions`."""
     if cuda_lib.on_cpu(*(t for t in (x, weight, bias) if t is not None)):
         return F.conv2d(x, weight, bias, padding=padding)
+    # .contiguous(): the net's input arrives permuted from NHWC.
     x = x.contiguous()
     _check(x, weight, bias, padding)
-    return _Conv2d.apply(x, weight, bias, padding)
+    y = _Conv2d.apply(x, weight, bias, padding)
+    if _steps:
+        spans.count("train.conv_kernel", 1)
+    return y
 
 
 conv2d.launches = 0
@@ -294,18 +299,31 @@ def weight_grad_plain(x: torch.Tensor, gy: torch.Tensor, k: int, padding: int):
 
 # ----- the net's convolutions inside a training step -----
 
-class _Routing:
-    depth = 0
+_steps = 0  # step_convolutions entered on a card and not yet left
 
 
 @contextlib.contextmanager
-def routed():
-    """Inside, `convolve` sends the convolutions the kernels take to them."""
-    _Routing.depth += 1
+def step_convolutions(device: str | torch.device):
+    """The convolutions of a training step's forward and backward: on a
+    CUDA device, `convolve` goes to `conv2d`, with cuDNN off (restored on
+    exit); elsewhere nothing changes. In float32 on HDR crops, cuDNN's
+    gradients of TrainConfig()'s net strayed up to 1.15e-3 of the largest
+    gradient from float64 (the first residual block's conv1 weight, on an
+    H100); the kernels stay within twice PyTorch's own float32 distance
+    layer by layer. The backward launches its kernels when it runs, so the
+    loss's backward belongs inside too. Inference keeps cuDNN."""
+    global _steps
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    _steps += 1
     try:
         yield
     finally:
-        _Routing.depth -= 1
+        _steps -= 1
+        torch.backends.cudnn.enabled = saved
 
 
 def _check_layer(conv: nn.Conv2d) -> None:
@@ -318,18 +336,13 @@ def _check_layer(conv: nn.Conv2d) -> None:
                          f"side, no dilation or groups; got {conv}")
 
 
-def convolve(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """conv(x): inside `routed()` the kernels for a float32 tensor off the
-    CPU (raising for a layer or a shape they cannot take), counted in
-    train.conv_kernel, and nn.Conv2d's own path for any other, counted in
-    train.conv_fallback; outside, nn.Conv2d's own path."""
-    if not _Routing.depth:
-        return nn.Conv2d.forward(conv, x)
-    if x.dtype != torch.float32 or cuda_lib.on_cpu(x):
-        spans.count("train.conv_fallback", 1)
-        return nn.Conv2d.forward(conv, x)
+def convolve(conv: nn.Conv2d, x: torch.Tensor, weight: torch.Tensor,
+             bias: torch.Tensor | None) -> torch.Tensor:
+    """The convolution of layer `conv` with `weight` and `bias` (the
+    layer's own, or a slice of them): inside `step_convolutions`,
+    `conv2d` (raising for a layer it cannot take); outside, nn.Conv2d's
+    own path."""
+    if not _steps:
+        return conv._conv_forward(x, weight, bias)
     _check_layer(conv)
-    # .contiguous(): the net's input arrives permuted from NHWC.
-    y = conv2d(x.contiguous(), conv.weight, conv.bias, conv.padding[0])
-    spans.count("train.conv_kernel", 1)
-    return y
+    return conv2d(x, weight, bias, conv.padding[0])

@@ -27,14 +27,14 @@ import functools
 
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
 from .. import convert
 from ..nn.loss import HdrLossConfig, hdr_loss
-from ..nn.train import Optimizer, TrainConfig, step_convolutions
+from ..nn.train import Optimizer, TrainConfig
 from ..nn.unet import FlaxBatchNorm2d, LitboxDenoiserNet, init_weights
+from ..ops import conv
 from . import world
 
 MODEL_SHARD_MIN_CHANNELS = 256  # shard conv kernels with >= this many out-channels
@@ -113,22 +113,28 @@ class _GatherChannels(torch.autograd.Function):
         return grad[:, lo:lo + ctx.width].contiguous(), None, None
 
 
-class _ModelShardedConv2d(nn.Module):
+class _ModelShardedConv2d(nn.Conv2d):
     """A conv whose kernel holds this rank's slice of the output channels;
-    the gathered output and the replicated bias give the full conv."""
+    the gathered output and the replicated bias give the full conv. The
+    slice convolves through `ops.conv.convolve`, as the net's layers do.
+    It is an nn.Conv2d for the layer's geometry alone, which convolve
+    checks and applies: out_channels is the slice's width and the bias the
+    whole layer's, added after the gather, so nn.Conv2d's own forward
+    (replaced here) would not fit it."""
 
-    def __init__(self, conv: nn.Conv2d, group, n: int, index: int):
-        super().__init__()
-        width = conv.out_channels // n
+    def __init__(self, layer: nn.Conv2d, group, n: int, index: int):
+        width = layer.out_channels // n
+        super().__init__(layer.in_channels, width, layer.kernel_size, layer.stride,
+                         layer.padding, layer.dilation, layer.groups, bias=False,
+                         padding_mode=layer.padding_mode, device="meta")
         self.weight = nn.Parameter(
-            conv.weight.detach()[index * width:(index + 1) * width].clone())
-        self.bias = nn.Parameter(conv.bias.detach().clone())
-        self.padding = conv.padding
+            layer.weight.detach()[index * width:(index + 1) * width].clone())
+        self.bias = nn.Parameter(layer.bias.detach().clone())
         self.group, self.index = group, index
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _SumGradOverModel.apply(x, self.group)
-        y = F.conv2d(x, self.weight, None, padding=self.padding)
+        y = conv.convolve(self, x, self.weight, None)
         y = _GatherChannels.apply(y, self.group, self.index)
         return y + self.bias[:, None, None]
 
@@ -192,7 +198,7 @@ def build_sharded_train_step(mesh, unet_size: int = 5, initial_features: int = 3
             raise ValueError("opt_state must be the optimizer of these params")
         take = lambda a: torch.as_tensor(  # noqa: E731
             a[i_data * rows:(i_data + 1) * rows], dtype=torch.float32).to(device)
-        with step_convolutions(device):
+        with conv.step_convolutions(device):
             out = functional_call(net, {**params, **batch_stats}, (take(inputs),),
                                   {"train": True})
             loss = hdr_loss(out, take(targets), loss_cfg)

@@ -1,8 +1,9 @@
 """ops.conv, the training step's convolutions.
 
 On the CPU: CPU tensors take nn.Conv2d's own path bit for bit, also inside
-a training step's routing; what the kernels cannot take raises before the
-library is built; the counters advance once a call on each path; the plain
+a training step's step_convolutions; what the kernels cannot take raises
+before the library is built; the counters advance once a call the kernels
+serve; the plain
 versions of the kernels' products (tap by tap; the data gradient's
 transposed weight with its taps reversed) equal PyTorch's convolution and its
 autograd; the launch plans. The kernel path's autograd plumbing runs with
@@ -12,8 +13,8 @@ On the card (`-m cuda`; this file imports neither JAX nor the JAX package):
 
     python -m pytest --noconftest -m cuda tests/test_torch_conv.py
 
-every distinct convolution of the two training cells' nets against float64
-on the CPU, within twice the distance of PyTorch's own float32 path, two
+every distinct convolution of the two training cells' nets and of the
+parallel step's net (chip_smoke.py) against float64 on the CPU, within twice the distance of PyTorch's own float32 path, two
 calls equal bit for bit, and the net's paddings (reflect, zeros,
 padding=1) through the kernels.
 """
@@ -23,15 +24,18 @@ import torch
 import torch.nn.functional as F
 
 from litbox_tpu_torch.core import spans
-from litbox_tpu_torch.nn.train import step_convolutions
 from litbox_tpu_torch.nn.unet import Conv3x3, LitboxDenoiserNet, StepConv2d, conv_shapes
 from litbox_tpu_torch.ops import conv, cuda_lib
+from litbox_tpu_torch.ops.conv import step_convolutions
 
-# The nets of the benchmark's two training cells: unet5-train (TrainConfig())
-# and unet4-rgb-pair-train (the round-5 recipe, 2 x 16 items through the net).
+# The nets of the benchmark's two training cells, unet5-train (TrainConfig())
+# and unet4-rgb-pair-train (the round-5 recipe, 2 x 16 items through the
+# net), and the sharded step of chip_smoke.py's parallel phase at one rank
+# (build_sharded_train_step's defaults at crop 64; each slice the whole layer).
 NETS = {"unet5": (4, 256, dict(unet_size=5, initial_features=32)),
         "pair": (32, 192, dict(unet_size=4, initial_features=16, global_residual=True,
-                               out_channels=3))}
+                               out_channels=3)),
+        "par": (4, 64, dict(unet_size=5, initial_features=32))}
 LAYERS = [(net, shape) for net, (b, crop, args) in NETS.items()
           for shape in conv_shapes(b, crop, crop, **args)]
 
@@ -54,26 +58,52 @@ def _run(net, x):
 
 @pytest.mark.parametrize("global_residual", [False, True])
 def test_cpu_tensors_take_nn_conv2d_path_bit_for_bit(monkeypatch, global_residual):
-    """Inside a training step's routing (step_convolutions of a card) a CPU
-    net runs nn.Conv2d's own convolutions: the output and every gradient
-    equal the unrouted run's bit for bit, and each call counts as a
-    fallback, none as a kernel launch."""
+    """Inside a training step's step_convolutions of a card a CPU net's
+    convolutions go to conv2d, once a StepConv2d, which gives CPU tensors
+    F.conv2d: the output and every gradient equal nn.Conv2d's own run's
+    (no conv2d call) bit for bit, and nothing counts, as no kernel served
+    them."""
     rec = spans.Recorder()
     monkeypatch.setattr(spans, "count", rec.count)
+    calls, real = [], conv.conv2d
+
+    def conv2d(*args):
+        calls.append(args[1])
+        return real(*args)
+
+    monkeypatch.setattr(conv, "conv2d", conv2d)
     x = _rand((2, 16, 16, 3), 1)
-    runs = []
-    for routed in (False, True):
+    runs, n_calls = [], []
+    for in_step in (False, True):
         net = _small_net(global_residual=global_residual, out_channels=3)
-        if routed:
+        calls.clear()
+        if in_step:
             with step_convolutions("cuda"):
                 runs.append(_run(net, x))
         else:
             runs.append(_run(net, x))
+        n_calls.append(len(calls))
+        layers = [m for m in net.modules() if isinstance(m, StepConv2d)]
     (out0, g0), (out1, g1) = runs
     assert torch.equal(out0, out1)
     assert g0.keys() == g1.keys() and all(torch.equal(g0[k], g1[k]) for k in g0)
-    calls = sum(isinstance(m, StepConv2d) for m in _small_net().modules())
-    assert rec.counters() == {"train.conv_fallback": calls}
+    assert rec.counters() == {}
+    assert n_calls == [0, len(layers)]
+    assert {id(w) for w in calls} == {id(m.weight) for m in layers}
+
+
+@pytest.mark.parametrize("layer", [
+    torch.nn.Conv2d(4, 8, 3),
+    torch.nn.Conv2d(4, 8, 3, padding=1, padding_mode="reflect"),
+    torch.nn.Conv2d(4, 8, 3, stride=2, padding="valid", bias=False),
+    torch.nn.Conv2d(4, 8, 3, groups=2, dilation=2, padding="same"),
+])
+def test_convolve_outside_a_step_is_nn_conv2d(layer):
+    """Outside a step, convolve with the layer's own weight and bias is
+    nn.Conv2d's forward bit for bit, whatever the layer's geometry."""
+    x = _rand((2, 4, 12, 12), 14)
+    assert torch.equal(conv.convolve(layer, x, layer.weight, layer.bias),
+                       torch.nn.Conv2d.forward(layer, x))
 
 
 def test_conv2d_on_cpu_tensors_is_f_conv2d():
@@ -84,8 +114,8 @@ def test_conv2d_on_cpu_tensors_is_f_conv2d():
 
 
 def test_cpu_step_convolutions_route_nothing(monkeypatch):
-    """On the CPU a Trainer's step_convolutions changes nothing: no routing,
-    no counter."""
+    """On the CPU a Trainer's step_convolutions changes nothing: the net's
+    convolutions take nn.Conv2d's own path, and nothing counts."""
     rec = spans.Recorder()
     monkeypatch.setattr(spans, "count", rec.count)
     net = _small_net()
@@ -148,11 +178,12 @@ def _plain_launches(monkeypatch):
 def test_counters_advance_once_a_call_on_each_path(monkeypatch, k, pad, bias, input_grad):
     """The kernel path counts each direction it launches on conv2d.launches
     (the forward, the data gradient where the input needs one, the weight
-    gradient); its gradients are autograd's. convolve outside routing
-    counts nothing; inside, one count a call: train.conv_fallback for a CPU
-    or float64 tensor, train.conv_kernel for a float32 one off the CPU
-    (stood in for here by patching the placement checks), whatever the
-    directions it launches."""
+    gradient); its gradients are autograd's. convolve outside a step counts
+    nothing; inside, a CPU tensor takes F.conv2d and counts nothing, a
+    float32 one off the CPU (stood in for here by patching the placement
+    checks) counts one train.conv_kernel a call, whatever the directions
+    it launches, and a float64 one off the CPU raises and counts
+    nothing."""
     rec = spans.Recorder()
     monkeypatch.setattr(spans, "count", rec.count)
     _plain_launches(monkeypatch)
@@ -178,18 +209,22 @@ def test_counters_advance_once_a_call_on_each_path(monkeypatch, k, pad, bias, in
         torch.testing.assert_close(t.grad.double(), r.grad, rtol=1e-5, atol=1e-4)
 
     layer = torch.nn.Conv2d(6, 5, k, padding=pad, bias=bias)
-    conv.convolve(layer, x.detach())
+    conv.convolve(layer, x.detach(), layer.weight, layer.bias)
     assert rec.counters() == {}
-    with conv.routed():
-        conv.convolve(layer, x.detach())
-        conv.convolve(torch.nn.Conv2d(6, 5, k).double(), x.detach().double())
-    assert rec.counters() == {"train.conv_fallback": 2}
+    with step_convolutions("cuda"):
+        conv.convolve(layer, x.detach(), layer.weight, layer.bias)
+        double = torch.nn.Conv2d(6, 5, k).double()
+        conv.convolve(double, x.detach().double(), double.weight, double.bias)
+    assert rec.counters() == {}
     monkeypatch.setattr(cuda_lib, "on_cpu", lambda *tensors: False)
     monkeypatch.setattr(cuda_lib, "require_cuda_float32", lambda *args: None)
     before = conv.conv2d.launches
-    with conv.routed():
-        conv.convolve(layer, x.detach().requires_grad_(input_grad)).sum().backward()
-    assert rec.counters() == {"train.conv_fallback": 2, "train.conv_kernel": 1}
+    with step_convolutions("cuda"):
+        conv.convolve(layer, x.detach().requires_grad_(input_grad), layer.weight,
+                      layer.bias).sum().backward()
+        with pytest.raises(TypeError, match="float32"):
+            conv.convolve(double, x.detach().double(), double.weight, double.bias)
+    assert rec.counters() == {"train.conv_kernel": 1}
     assert conv.conv2d.launches == before + 1 + n_back
 
 
@@ -215,12 +250,12 @@ def test_plain_products_are_the_convolution_and_its_gradients(n, cin, cout, h, k
 
 
 def test_plans_split_only_small_grids_with_no_empty_split():
-    """Every distinct convolution of both nets: the forward's and the data
+    """Every distinct convolution of the nets: the forward's and the data
     gradient's tiles follow the output channels, and a sum is split only
     where the tiles are fewer than two waves of the card, into no more
     blocks than two waves and splits of MIN_SPLIT_STEPS steps or more, none
     of them empty."""
-    assert len(LAYERS) == 66
+    assert len(LAYERS) == 102
     for _, (n, cin, cout, h, w, k, pad) in LAYERS:
         ho, wo = h + 2 * pad - k + 1, w + 2 * pad - k + 1
         for pixels, ch, cin_ in ((n * ho * wo, cout, cin), (n * h * w, cin, cout)):
@@ -253,21 +288,25 @@ def test_every_layer_of_the_nets_is_one_the_kernels_take():
 
 
 def test_takes_only_cuda_float32_layers(monkeypatch):
-    """Inside routing, a float32 tensor off the CPU goes to the kernels'
+    """Inside a step, a float32 tensor off the CPU goes to the kernels'
     wrapper (a meta tensor reaches its placement check, which raises before
-    the library is built); a float64 one or a CPU one takes nn.Conv2d's
-    own path, counted as a fallback."""
+    the library is built); a float64 one off the CPU raises, as the kernels
+    take float32 only; a CPU one takes F.conv2d. None of them counts."""
     rec = spans.Recorder()
     monkeypatch.setattr(spans, "count", rec.count)
     monkeypatch.setattr(cuda_lib, "library", _no_build)
     layer = torch.nn.Conv2d(4, 8, 3, padding=1)
-    with conv.routed():
+    with step_convolutions("cuda"):
         with pytest.raises(ValueError, match="expected CUDA"):
-            conv.convolve(layer, _meta((1, 4, 8, 8)))
-        assert conv.convolve(layer.double(), _meta((1, 4, 8, 8), torch.float64)).shape == (
-            1, 8, 8, 8)
-        assert conv.convolve(layer.float(), torch.zeros(1, 4, 8, 8)).shape == (1, 8, 8, 8)
-    assert rec.counters() == {"train.conv_fallback": 2}
+            conv.convolve(layer, _meta((1, 4, 8, 8)), layer.weight, layer.bias)
+        double = layer.double()
+        with pytest.raises(TypeError, match="float32"):
+            conv.convolve(double, _meta((1, 4, 8, 8), torch.float64), double.weight,
+                          double.bias)
+        layer = layer.float()
+        assert conv.convolve(layer, torch.zeros(1, 4, 8, 8), layer.weight,
+                             layer.bias).shape == (1, 8, 8, 8)
+    assert rec.counters() == {}
 
 
 @pytest.mark.parametrize("layer,match", [
@@ -280,14 +319,14 @@ def test_takes_only_cuda_float32_layers(monkeypatch):
     (torch.nn.Conv2d(4, 8, 5, padding=2), "1x1 and 3x3"),
 ])
 def test_routed_float32_layers_the_kernels_cannot_take_raise(monkeypatch, layer, match):
-    """Inside routing, a float32 convolution off the CPU that the kernels
+    """Inside a step, a float32 convolution off the CPU that the kernels
     cannot take raises before the library is built, and counts nothing: it
     does not fall back to PyTorch's path."""
     rec = spans.Recorder()
     monkeypatch.setattr(spans, "count", rec.count)
     monkeypatch.setattr(cuda_lib, "library", _no_build)
-    with conv.routed(), pytest.raises(ValueError, match=match):
-        conv.convolve(layer, _meta((2, 4, 12, 12)))
+    with step_convolutions("cuda"), pytest.raises(ValueError, match=match):
+        conv.convolve(layer, _meta((2, 4, 12, 12)), layer.weight, layer.bias)
     assert rec.counters() == {}
 
 
@@ -343,11 +382,12 @@ def test_kernels_match_float64_at_every_layer(dev, net, shape):
 @pytest.mark.parametrize("padding_mode,global_residual", [("reflect", False), ("zeros", True)])
 def test_net_gradients_through_the_kernels(dev, padding_mode, global_residual):
     """A net's training step on the card through the kernels (reflect or
-    zero padding by Conv3x3, padding=1 by conv_out): no fallback, the
-    gradients within 1e-5 of the largest from float64 on the CPU, and with
-    zero padding two steps from the same weights equal bit for bit (with
-    reflect padding, PyTorch's ReflectionPad2d backward adds its gradients
-    with atomics, in no fixed order)."""
+    zero padding by Conv3x3, padding=1 by conv_out): every convolution on
+    the kernels, one train.conv_kernel a call, the gradients within 1e-5 of
+    the largest from float64 on the CPU, and with zero padding two steps
+    from the same weights equal bit for bit (with reflect padding,
+    PyTorch's ReflectionPad2d backward adds its gradients with atomics, in
+    no fixed order)."""
     torch.manual_seed(3)
     net = LitboxDenoiserNet(unet_size=2, initial_features=8, padding_mode=padding_mode,
                             global_residual=global_residual, out_channels=3)
@@ -370,7 +410,8 @@ def test_net_gradients_through_the_kernels(dev, padding_mode, global_residual):
     finally:
         spans.count = count
     ref = grads(copy.deepcopy(net), "cpu", torch.float64)
-    assert "train.conv_fallback" not in rec.counters() and rec.counters()["train.conv_kernel"] > 0
+    calls = sum(isinstance(m, StepConv2d) for m in net.modules())
+    assert rec.counters() == {"train.conv_kernel": 2 * calls}
     if padding_mode == "zeros":
         assert all(torch.equal(card[k], card2[k]) for k in card)
     scale = max(float(g.abs().max()) for g in ref.values())

@@ -27,7 +27,9 @@ from litbox_tpu.parallel.train_sharded import build_sharded_train_step as jax_bu
 from litbox_tpu.parallel.train_sharded import make_train_mesh as jax_train_mesh
 from litbox_tpu.parallel.train_sharded import param_shardings as jax_param_shardings
 from litbox_tpu_torch import convert
-from litbox_tpu_torch.parallel import world
+from litbox_tpu_torch.nn.unet import LitboxDenoiserNet, StepConv2d
+from litbox_tpu_torch.ops import conv
+from litbox_tpu_torch.parallel import train_sharded, world
 
 TOL = 1e-4  # tests/test_parallel.py::test_sharded_train_bn_stats_are_global
 
@@ -136,3 +138,35 @@ def test_param_shardings_match_jax(port):
             if "model" in spec.spec}
     got = {convert.flax_path(name)[1] for name in port["shardings"]}
     assert want and got == want
+
+
+def _sharded_step() -> None:
+    """One sharded step of a size-2, 4-feature net at crop 16 on a
+    one-rank mesh."""
+    rng = np.random.default_rng(1)
+    inputs = rng.normal(size=(2, 16, 16, 1)).astype(np.float32)
+    run, params, stats, opt = train_sharded.build_sharded_train_step(
+        train_sharded.make_train_mesh(1, model_parallel=1), unet_size=2, initial_features=4,
+        batch=2)
+    run(params, stats, opt, inputs, inputs ** 2)
+
+
+def test_sharded_step_convolves_every_layer_through_ops_conv(monkeypatch):
+    """With kernels of >= 8 output channels sharded, one sharded step sends
+    every convolution of the net through ops.conv.convolve, the channel
+    slices included, once each: on a card, where convolve takes the
+    kernels, none reaches PyTorch's own convolution."""
+    monkeypatch.setattr(train_sharded, "MODEL_SHARD_MIN_CHANNELS", 8)
+    layers, real = [], conv.convolve
+
+    def convolve(layer, *args):
+        layers.append(layer)
+        return real(layer, *args)
+
+    monkeypatch.setattr(conv, "convolve", convolve)
+    world.run(_sharded_step, 1, device="cpu", inline_rank0=True)
+    net = LitboxDenoiserNet(unet_size=2, initial_features=4)
+    sharded = [m for m in layers if isinstance(m, train_sharded._ModelShardedConv2d)]
+    assert sharded and len(sharded) < len(layers)
+    assert len(layers) == len(set(map(id, layers))) == sum(
+        isinstance(m, StepConv2d) for m in net.modules())

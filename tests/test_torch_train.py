@@ -42,6 +42,7 @@ from litbox_tpu_torch.nn import unet as tunet
 from litbox_tpu_torch.nn.dataset import DenoiserDataset
 from litbox_tpu_torch.nn.infer import infer_large
 from litbox_tpu_torch.nn.loss import HdrLossConfig
+from litbox_tpu_torch.ops import conv
 
 STEP_TOL = 1e-5   # of the largest magnitude in a tree
 OPT_REL = 1e-6
@@ -195,10 +196,10 @@ def test_step_convolutions_turn_cudnn_off_on_a_card_only(device, monkeypatch):
     """step_convolutions turns cuDNN off for a CUDA device only (a device
     name, no card needed) and restores the setting, on an error too."""
     monkeypatch.setattr(torch.backends.cudnn, "enabled", True)
-    with ttrain.step_convolutions(device):
+    with conv.step_convolutions(device):
         assert torch.backends.cudnn.enabled == (device == "cpu")
     assert torch.backends.cudnn.enabled
-    with pytest.raises(KeyError), ttrain.step_convolutions(torch.device(device)):
+    with pytest.raises(KeyError), conv.step_convolutions(torch.device(device)):
         raise KeyError
     assert torch.backends.cudnn.enabled
 
