@@ -27,8 +27,8 @@ A step is the step span `train.step` (core/spans.py) around `train.forward`,
 loss is read, `train.loss_read`; inside `train.forward`, `pair_loss`
 records `train.compose` around what follows the net (the k projection,
 the display and both losses); `select_random_channel` records
-`data.channel` and the copy to the device `train.h2d`, with its bytes in
-`train.h2d_bytes`.
+`data.channel` (drawing the channels and making them, `Batch.channel`) and
+the copy to the device `train.h2d`, with its bytes in `train.h2d_bytes`.
 
 `save` writes the JAX package's npz layout: `params:<flax path>`,
 `stats:<flax path>`, the optimizer under optax's paths (`opt:2/0/.count`,
@@ -52,7 +52,7 @@ import torch
 from .. import convert
 from ..core import spans
 from ..ops import adam, conv
-from .dataset import DenoiserDataset
+from .dataset import Batch, DenoiserDataset
 from .loss import HdrLossConfig, hdr_loss
 from .unet import (LitboxDenoiserNet, TransformConfig, init_weights, post_transform,
                    pre_transform)
@@ -276,16 +276,15 @@ class Trainer:
                 return float(loss)
 
     @staticmethod
-    def select_random_channel(batch: dict, rng: np.random.Generator,
+    def select_random_channel(batch: Batch, rng: np.random.Generator,
                               device: str | torch.device = "cuda"):
         """Same random channel for input and target per item
-        (train_litbox_denoiser.py:102-113), as tensors on `device`."""
+        (train_litbox_denoiser.py:102-113), as tensors on `device`: the
+        batch makes just those channels of input A and the reference."""
         with spans.span("data.channel"):
-            n = batch["input_a"].shape[0]
-            c = rng.integers(0, 3, n)
-            idx = np.arange(n)
-            inputs = batch["input_a"][idx, :, :, c][..., None]
-            targets = batch["reference"][idx, :, :, c][..., None]
+            c = rng.integers(0, 3, batch.size)
+            inputs = batch.channel("input_a", c)
+            targets = batch.channel("reference", c)
         with spans.span("train.h2d"):
             out = (torch.as_tensor(inputs, device=device),
                    torch.as_tensor(targets, device=device))
@@ -307,9 +306,10 @@ class Trainer:
             for epoch in range(self.cfg.epochs):
                 for batch in dataset.batches(self.cfg.batch_size, rng, shuffle=True):
                     if self.cfg.rgb:
+                        a, ref = batch["input_a"], batch["reference"]
                         with spans.span("train.h2d"):
-                            inputs = self._tensor(batch["input_a"])
-                            targets = self._tensor(batch["reference"])
+                            inputs = self._tensor(a)
+                            targets = self._tensor(ref)
                         spans.count("train.h2d_bytes", inputs.nbytes + targets.nbytes)
                     else:
                         inputs, targets = self.select_random_channel(batch, rng, self.device)

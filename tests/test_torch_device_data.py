@@ -1,6 +1,7 @@
 """The port's training data (litbox_tpu_torch.nn.dataset and
 nn.device_data) against the JAX package's, bit for bit: DenoiserDataset
-batches and build_curriculum for one numpy seed, stack_stage, and the
+batches and build_curriculum for one numpy seed (with the channel take
+of a batch, Batch.channel, against its whole arrays), stack_stage, and the
 on-device samplers fed the same explicit draws as the JAX package's
 composition (dynamic_slice, where, rot90, the channel take,
 litbox_tpu/nn/device_data.py:67-86, 118-136)."""
@@ -17,8 +18,10 @@ from litbox_tpu.io import write_exr_rgb as jwrite_exr_rgb
 from litbox_tpu.io import write_png as jwrite_png
 from litbox_tpu.nn import dataset as jdataset
 from litbox_tpu.nn import device_data as jdd
+from litbox_tpu_torch.core import spans
 from litbox_tpu_torch.nn import dataset as tdataset
 from litbox_tpu_torch.nn import device_data as tdd
+from litbox_tpu_torch.nn.train import Trainer
 
 
 @pytest.fixture(scope="module")
@@ -62,6 +65,79 @@ def test_dataset_batches_match_jax(corpus, upsample, shuffle, scales):
                 np.testing.assert_array_equal(x[k], y[k])
     item = tds.__getitem__(1, np.random.default_rng(3))
     assert item[0].shape == (24 // upsample, 24 // upsample, 3) and item[4].shape == (24, 24, 3)
+
+
+LAZY = pytest.mark.parametrize("upsample,scales,shuffle", [
+    (u, sc, sh) for u in (1, 2) for sc in (None, (0.5, 2.0, 1.0, 3.0, 0.1)) for sh in (True, False)])
+
+
+def _port_dataset(corpus, upsample, scales):
+    ref, alb, trans, a, b = (sorted(glob.glob(g)) for g in _globs(corpus))
+    return tdataset.DenoiserDataset(a, b, alb, trans, ref, crop_size=24, upsample=upsample,
+                                    scales=scales)
+
+
+@LAZY
+def test_channel_take_is_the_full_arrays_channel(corpus, upsample, scales, shuffle):
+    """select_random_channel's inputs and targets are the bits of
+    full[idx, :, :, c][..., None] of the same batch's whole arrays, read
+    afterwards, and it leaves the rng where drawing c from it does."""
+    tds = _port_dataset(corpus, upsample, scales)
+    r, replay = np.random.default_rng(2 ** 31 + 5), np.random.default_rng(2 ** 31 + 5)
+    for _ in range(2):
+        for batch, twin in zip(tds.batches(2, r, shuffle=shuffle),
+                               tds.batches(2, replay, shuffle=shuffle)):
+            x, y = Trainer.select_random_channel(batch, r, "cpu")
+            c = replay.integers(0, 3, 2)
+            assert r.bit_generator.state == replay.bit_generator.state
+            for got, key in ((x, "input_a"), (y, "reference")):
+                want = twin[key][np.arange(2), :, :, c][..., None]
+                assert got.dtype == torch.float32 and got.is_contiguous()
+                np.testing.assert_array_equal(got.numpy(), want)
+                np.testing.assert_array_equal(got.numpy(), batch[key][np.arange(2), :, :, c][..., None])
+
+
+@LAZY
+def test_channels_then_full_arrays_match_jax(corpus, upsample, scales, shuffle):
+    """Taking channels first does not change the whole arrays a batch makes
+    afterwards: they are still the JAX package's batches, bit for bit, read
+    by key or through the mapping's items()."""
+    ref, alb, trans, a, b = (sorted(glob.glob(g)) for g in _globs(corpus))
+    jds = jdataset.DenoiserDataset(a, b, alb, trans, ref, crop_size=24, upsample=upsample,
+                                   scales=scales)
+    tds = _port_dataset(corpus, upsample, scales)
+    jr, tr, cr = np.random.default_rng(11), np.random.default_rng(11), np.random.default_rng(12)
+    for x, y in zip(tds.batches(2, tr, shuffle=shuffle), jds.batches(2, jr, shuffle=shuffle)):
+        c = cr.integers(0, 3, 2)
+        for key in tdataset.NAMES:
+            np.testing.assert_array_equal(x.channel(key, c)[..., 0], y[key][np.arange(2), :, :, c])
+        assert sorted(x) == sorted(y) and len(x) == len(y) and "albedo" in x
+        whole = dict(x.items())
+        assert list(whole) == list(tdataset.NAMES)
+        for key in y:
+            assert whole[key].shape == y[key].shape and whole[key] is x[key]
+            np.testing.assert_array_equal(whole[key], y[key])
+
+
+@LAZY
+def test_channel_take_makes_only_what_it_sends(corpus, upsample, scales, shuffle):
+    """A batch read only through select_random_channel makes no whole
+    array: data.batch_bytes counts the bytes sent, train.h2d_bytes."""
+    tds = _port_dataset(corpus, upsample, scales)
+    rng = np.random.default_rng(3)
+    spans.reset()
+    try:
+        sent = 0
+        for batch in tds.batches(2, rng, shuffle=shuffle):
+            x, y = Trainer.select_random_channel(batch, rng, "cpu")
+            sent += x.nbytes + y.nbytes
+        made = spans.counters()
+        assert made["data.batch_bytes"] == made["train.h2d_bytes"] == sent
+        assert spans.totals()["data.batch"][0] == len(tds) // 2
+        whole = sum(batch[k].nbytes for k in ("input_a", "reference"))
+        assert spans.counters()["data.batch_bytes"] == sent + whole
+    finally:
+        spans.reset()
 
 
 def test_curriculum_matches_jax(corpus):

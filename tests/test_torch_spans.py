@@ -169,11 +169,12 @@ def test_trainer_step_spans_and_counters(tmp_path):
     assert parents["train.forward"] == parents["train.backward"] == "train.step"
     assert parents["train.optimizer"] == parents["train.loss_read"] == "train.step"
     assert parents["data.batch"] is None and parents["train.h2d"] is None
-    assert r.counts["data.batch_bytes"] == sum(v.nbytes for v in batch.values())
     assert r.counts["train.h2d_bytes"] == x.nbytes + y.nbytes
     assert r.counts["data.exr_reads"] == 2 * 5
-    # The mono step copies one channel of input A and of the reference.
-    assert 15 * r.counts["train.h2d_bytes"] == 2 * r.counts["data.batch_bytes"]
+    # The mono step makes and copies one channel of input A and of the
+    # reference, and the batch makes nothing else.
+    assert r.counts["data.batch_bytes"] == r.counts["train.h2d_bytes"]
+    assert x.shape == (2, TINY["crop_size"], TINY["crop_size"], 1)
     # The async step has the same spans but no loss read.
     trainer.train_batch_async(x, y)
     assert {s.name for s in spans.step_records()[-1].spans} == {
@@ -245,7 +246,10 @@ def test_fit_records_the_steps_spans(tmp_path, rgb):
     for r in records:
         want = TRAIN_SPANS - ({"data.channel"} if rgb else set())
         assert {s.name for s in r.spans} == want
-        assert 15 * r.counts["train.h2d_bytes"] == (6 if rgb else 2) * r.counts["data.batch_bytes"]
+        # The batch makes what the step sends: input A and the reference,
+        # whole (RGB) or one channel of each (mono).
+        assert r.counts["train.h2d_bytes"] == r.counts["data.batch_bytes"] == (
+            2 * 2 * TINY["crop_size"] ** 2 * (3 if rgb else 1) * 4)
     assert spans.counters()["data.exr_reads"] == 4 * 5
 
 
@@ -356,7 +360,7 @@ def test_readers_on_a_cpu_run(tmp_path):
             for a, b in zip(records, records[1:])]
     assert got["gap_ms.train"] == pytest.approx(median(gaps))
     assert got["gap_ms.train"] > 0
-    assert got["batch_use.train"] == pytest.approx(100 * 2 / 15)
+    assert got["batch_use.train"] == pytest.approx(100)
     for name in READERS:
         assert _reader(name).read({}) is None
 
