@@ -80,7 +80,7 @@ and runs thirteen phases, each printed with its wall seconds:
   on the card to 1e-5, linearity to 1e-5, the output's mass within 5% of
   the same steps with Monte-Carlo bounces). K1-K3 must be launched by
   reference and by dom, and each output must lie on the card.
-- train: denoiser training with TF32 off, in three configurations. corpus:
+- train: denoiser training with TF32 off, in four configurations. corpus:
   8 scenes at 256^2 (the README scene with light positions, colors and one
   or two medium rects from a seed) through Simulation on "rbt-paired":
   tracers A and B after 4 steps, the reference after 64, albedo and
@@ -104,7 +104,18 @@ and runs thirteen phases, each printed with its wall seconds:
   from_checkpoint with blend "auto" running an on_step. Both: the
   optimizer's update kernel launched twice a step (its launches and the
   step records' train.optimizer_launches), the host's median ms in
-  train.optimizer.
+  train.optimizer. kpcn: KPCN at its published widths (9 layers of 5x5 at
+  100 features, a 21x21 softmax kernel; the kpcn-21-train cell's 64
+  patches of 65^2) on DeviceStages of 8 synthetic 256^2 scenes with albedo
+  and transmissibility made on the card, sample_kpcn and
+  train_batch_kpcn_async for 40 steps: ms a step, crops/s, the share of
+  the float32 peak, peak memory, finite losses that fall, no host sync in
+  the loop; each step's records must count 9 train.conv_kernel, 2
+  train.kpn_apply and 1 train.optimizer_launches (no clip); then the
+  reconstruction kernels (ops/kpn.py) at the step's shape against their
+  plain versions, two calls bit for bit, each timed beside its bytes'
+  bound. Last, every distinct convolution of the cells' nets and of
+  KPCN's trunk through the kernels against PyTorch's path (conv_layers).
 - data: data.TrainingFactory with runs/gen_dataset_r2.py's recipe (:17-31:
   256², input profiles (5, 8192), (1, 65536), (1, 262144), convergence at
   262,144 photons to 6e-4 within 250 frames, seed 1042, MC direct inputs,
@@ -219,13 +230,14 @@ from litbox_tpu_torch.demo import abduction, game
 from litbox_tpu_torch.diag import picker
 from litbox_tpu_torch.engine import Mode, Simulation, Strategy, pipeline, realtime
 from litbox_tpu_torch.io import read_exr_rgb, read_image_linear, write_exr_rgb
+from litbox_tpu_torch.nn import kpcn as kpcn_net
 from litbox_tpu_torch.nn import train
 from litbox_tpu_torch.nn.dataset import build_curriculum
 from litbox_tpu_torch.nn.device_data import DeviceStages, stack_stage
 from litbox_tpu_torch.nn.loss import HdrLossConfig, hdr_loss
 from litbox_tpu_torch.nn.unet import (LitboxDenoiserNet, StepConv2d, TransformConfig, conv_shapes,
                                       init_weights)
-from litbox_tpu_torch.ops import adam, attnscan, cuda_lib, rotate
+from litbox_tpu_torch.ops import adam, attnscan, cuda_lib, kpn, rotate
 from litbox_tpu_torch.ops import conv as conv_kernels
 from litbox_tpu_torch.parallel import train_sharded as parallel_train
 from litbox_tpu_torch.parallel import world as par_world
@@ -276,6 +288,12 @@ KERNELS = {
     "conv2d": dict(source="litbox_tpu_torch/csrc/conv.cu",
                    replaces="none (XLA's convolutions: litbox_tpu/nn/unet.py)",
                    tol="2 x PyTorch's float32 distance from float64"),
+    # KPCN's reconstruction: no TPU kernel (the JAX package has no KPCN).
+    # Against the softmax and unfold composition (forward) and the backward's
+    # formula on the plain path, of the largest value: the exps of z - max
+    # against z - lse, and g . x - g . o subtracting sums of like size.
+    "kpn_apply": dict(source="litbox_tpu_torch/csrc/kpn.cu",
+                      replaces="none (the JAX package has no KPCN)", tol=1e-5),
 }
 # K4's cost split: up to 384 images summed in order in the kernels, in
 # PyTorch's order in the plain versions.
@@ -292,6 +310,7 @@ for _name, _line in MICROOPS.items():
                           replaces=f"runs/prof_microops.py:{_line}", tol=0.0)
 COUNTERS = {"attenuation_scan_rows": attnscan.attenuation_scan_rows,
             "adam_update": adam.adam_update, "conv2d": conv_kernels.conv2d,
+            "kpn_apply": kpn.kernel_apply,
             "shear": rotate.shear, "shear_reduce": rotate.shear_reduce,
             "rotate_planar_sum_fused": rotate.rotate_planar_sum_fused,
             **{name: getattr(rotfused, name) for name in SPLIT},
@@ -2227,6 +2246,18 @@ CONV_NETS = {"unet5": (4, 256, dict(unet_size=5, initial_features=32)),
              "par": (4, 64, dict(unet_size=5, initial_features=32))}
 
 
+# KPCN's trunk at the kpcn-21-train cell's batch: 64 patches of 65^2.
+KPCN_BATCH, KPCN_CROP = 64, 65
+
+
+def _net_shapes(net: str) -> list:
+    """The distinct convolutions of a net of CONV_NETS, or of KPCN's trunk."""
+    if net == "kpcn":
+        return kpcn_net.conv_shapes(KPCN_BATCH, KPCN_CROP, KPCN_CROP)
+    batch, crop, args = CONV_NETS[net]
+    return conv_shapes(batch, crop, crop, **args)
+
+
 def _conv_directions(fn, x, w, b, pad, gy) -> list:
     """(y, dx, dw, db) of fn(x, w, b, padding=pad) with autograd."""
     x, w, b = (t.detach().requires_grad_() for t in (x, w, b))
@@ -2234,8 +2265,8 @@ def _conv_directions(fn, x, w, b, pad, gy) -> list:
     return [y.detach(), *torch.autograd.grad(y, (x, w, b), gy)]
 
 
-def conv_layers(failures: list, nets=tuple(CONV_NETS)) -> list:
-    """Each distinct convolution of CONV_NETS on the card
+def conv_layers(failures: list, nets=tuple(CONV_NETS) + ("kpcn",)) -> list:
+    """Each distinct convolution of CONV_NETS and of KPCN's trunk on the card
     (N, Cin, Cout, H, W of the tensor it sees, k, padding; ops.conv's
     kernels against PyTorch's own float32 path with cuDNN off): the forward
     and both gradients through autograd, ms by CUDA events (median of 5), as
@@ -2245,8 +2276,7 @@ def conv_layers(failures: list, nets=tuple(CONV_NETS)) -> list:
     than twice PyTorch's path, or calls that differ, fail."""
     rows = []
     for net in nets:
-        batch, crop, args = CONV_NETS[net]
-        for n, cin, cout, h, w, k, pad in conv_shapes(batch, crop, crop, **args):
+        for n, cin, cout, h, w, k, pad in _net_shapes(net):
             gen = torch.Generator(device="cuda").manual_seed(len(rows))
             x = torch.randn((n, cin, h, w), device="cuda", generator=gen)
             wt = torch.randn((cout, cin, k, k), device="cuda", generator=gen) / (cin * k * k) ** 0.5
@@ -2473,10 +2503,138 @@ def _pair(root: Path, failures: list) -> dict:
                 from_checkpoint=accel, update=update, convolutions=convs)
 
 
+KPCN_SCENES = 8
+# The reconstruction's shape: the kpcn-21-train cell's logits.
+KPN_SHAPE = (KPCN_BATCH, 21, KPCN_CROP, KPCN_CROP)
+
+
+def check_kpn(failures: list) -> list:
+    """The reconstruction kernels at KPN_SHAPE (N, K, H, W) against their
+    plain versions (the forward's softmax and unfold, the backward's
+    formula), two calls bit for bit, each direction timed alone beside the
+    bytes it moves (each tensor once) at HBM_BYTES_PER_S."""
+    n, k, h, w = KPN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    logits = 3.0 * torch.randn((n, k * k, h, w), device="cuda", generator=gen)
+    colour = torch.log1p(4.0 * torch.rand((n, 3, h, w), device="cuda", generator=gen))
+    g = torch.randn((n, 3, h, w), device="cuda", generator=gen)
+
+    def run():
+        z = logits.clone().requires_grad_()
+        out = kpn.kernel_apply(z, colour)
+        out.backward(g)
+        return out.detach(), z.grad
+
+    got, again = run(), run()
+    plain = (kpn.kernel_apply_plain(logits, colour), kpn.backward_plain(logits, colour, g))
+    errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, plain)]
+    repeats = all(torch.equal(a, b) for a, b in zip(got, again))
+    if not repeats or max(errs) > KERNELS["kpn_apply"]["tol"]:
+        failures.append(f"kpn: kernel vs plain {errs}, repeats {repeats}")
+    lib, stream = cuda_lib.library(), cuda_lib.stream_handle(logits.device)
+    out, lse, dz = torch.empty_like(colour), torch.empty((n, h, w), device="cuda"), \
+        torch.empty_like(logits)
+
+    def forward():
+        cuda_lib.check(lib.litbox_kpn_forward(logits.data_ptr(), colour.data_ptr(),
+                                              out.data_ptr(), lse.data_ptr(), n, h, w, k,
+                                              stream), "kpn")
+
+    def backward():
+        cuda_lib.check(lib.litbox_kpn_backward(logits.data_ptr(), colour.data_ptr(),
+                                               lse.data_ptr(), out.data_ptr(), g.data_ptr(),
+                                               dz.data_ptr(), n, h, w, k, stream), "kpn")
+
+    forward()
+    small = 4 * n * h * w  # one float a pixel
+    cases = []
+    for name, fn, plain_fn, n_bytes, err in (
+            ("forward", forward, lambda: kpn.kernel_apply_plain(logits, colour),
+             logits.nbytes + colour.nbytes + out.nbytes + small, errs[0]),
+            ("backward", backward, lambda: kpn.backward_plain(logits, colour, g),
+             2 * logits.nbytes + 3 * colour.nbytes + small, errs[1])):
+        ms, plain_ms = time_ms(fn), time_ms(plain_fn, reps=3)
+        b, by = bound(n_bytes, 0)
+        cases.append(dict(shape=f"{name} {list(KPN_SHAPE)}", ms=ms, bound_ms=b, bound_by=by,
+                          share=b / ms, plain_ms=plain_ms, ratio_to_plain=ms / plain_ms,
+                          max_rel_err=err, repeats=repeats))
+    del logits, colour, g, got, again, plain, out, lse, dz
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _kpcn(failures: list) -> dict:
+    """KPCN at its published widths on DeviceStages of KPCN_SCENES
+    synthetic 256^2 scenes made on the card: TRAIN_STEPS steps of
+    sample_kpcn and train_batch_kpcn_async; every step counts 9
+    train.conv_kernel, 2 train.kpn_apply and 1 train.optimizer_launches,
+    and the loop makes no host wait. Then check_kpn."""
+    cfg = train.TrainConfig(learn_rate=1e-5, weight_decay=0.0, grad_clip=0.0,
+                            batch_size=KPCN_BATCH, crop_size=KPCN_CROP,
+                            kpcn=kpcn_net.KpcnConfig())
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    shape = (KPCN_SCENES, 256, 256)
+    ref = torch.exp(torch.randn(shape + (3,), device="cuda", generator=gen))
+    a, b = (ref * torch.exp(0.2 * torch.randn(ref.shape, device="cuda", generator=gen))
+            for _ in range(2))
+    albedo = torch.rand(shape + (3,), device="cuda", generator=gen)
+    trans = torch.rand(shape + (1,), device="cuda", generator=gen)
+    torch.cuda.reset_peak_memory_stats()
+    dev = DeviceStages({"Final": (a, b, ref, albedo, trans)})
+    trainer = train.Trainer(cfg)
+    losses = []
+
+    def steps():
+        for _ in range(TRAIN_STEPS):
+            batch = dev.sample_kpcn("Final", gen, cfg.batch_size, cfg.crop_size)
+            losses.append(trainer.train_batch_kpcn_async(*batch))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    before = read_counts()
+    syncs = host_syncs(steps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: count - before[name] for name, count in read_counts().items()}
+    records = spans.step_records()[-TRAIN_STEPS:]
+    counted = {name: sorted({r.counts.get(name, 0) for r in records})
+               for name in ("train.conv_kernel", "train.kpn_apply", "train.optimizer_launches")}
+    want = {"train.conv_kernel": [cfg.kpcn.layers], "train.kpn_apply": [2],
+            "train.optimizer_launches": [1]}
+    if counted != want:
+        failures.append(f"kpcn: step counts {counted}, expected {want}")
+    if syncs:
+        failures.append(f"kpcn: the step loop made the host wait at {sorted(set(syncs))}")
+    losses = [float(x) for x in losses]
+    _losses_ok("kpcn", losses, failures)
+    if not losses[-1] < losses[0]:
+        failures.append(f"kpcn: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    # Every layer, the seven alike 100 -> 100 ones each time (_net_shapes
+    # lists the distinct ones).
+    c, k = kpcn_net.widths(cfg.kpcn), cfg.kpcn.kernel
+    flop = 3 * sum(2 * cfg.batch_size * cfg.crop_size ** 2 * cin * cout * k * k
+                   for cin, cout in zip(c, c[1:]))
+    params = sum(p.numel() for p in trainer.params.values())
+    del trainer, dev, a, b, ref, albedo, trans
+    torch.cuda.empty_cache()
+    cases = check_kpn(failures)
+    return dict(config="kpcn-21 (litbench/configs/kpcn-21.json), synthetic scenes",
+                params=params,
+                crop=cfg.crop_size, batch=cfg.batch_size, steps=TRAIN_STEPS, ms_per_step=ms,
+                crops_per_second=cfg.batch_size / (ms / 1e3), flop_per_step=flop,
+                tflop_per_s=flop / (ms / 1e3) / 1e12,
+                fp32_peak_share=flop / (ms / 1e3) / FP32_OPS_PER_S,
+                peak_memory_bytes=peak, loss_first=losses[0], loss_last=losses[-1],
+                host_syncs_in_loop=len(syncs), step_counts=counted, launches=launches,
+                kernel_cases=cases)
+
+
 def train_phase() -> dict:
     """corpus, mono and pair, with TF32 off; the corpus and checkpoints live
-    in a directory of the checkout, removed at the end; then each distinct
-    convolution of CONV_NETS (both cells' nets and the parallel phase's),
+    in a directory of the checkout, removed at the end; then kpcn (its
+    corpus made on the card) and each distinct convolution of CONV_NETS
+    (both cells' nets and the parallel phase's) and of KPCN's trunk,
     the kernels against PyTorch's path (conv_layers)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2491,6 +2649,7 @@ def train_phase() -> dict:
     finally:
         shutil.rmtree(CORPUS_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
+    kpcn = _kpcn(failures)
     layers = conv_layers(failures)
     tf32 = dict(matmul=torch.backends.cuda.matmul.allow_tf32,
                 cudnn=torch.backends.cudnn.allow_tf32)
@@ -2498,11 +2657,13 @@ def train_phase() -> dict:
         failures.append(f"train: TF32 was turned on during the phase: {tf32}")
     if failures:
         raise AssertionError("; ".join(failures))
-    return dict(allow_tf32=tf32, corpus=corpus, mono=mono, pair=pair, conv_layers=layers,
+    return dict(allow_tf32=tf32, corpus=corpus, mono=mono, pair=pair, kpcn=kpcn,
+                conv_layers=layers,
                 launches=dict(corpus["launches"], adam_update=mono["update"]["launches"]
-                              + pair["update"]["launches"],
+                              + pair["update"]["launches"] + kpcn["launches"]["adam_update"],
                               conv2d=mono["convolutions"]["launches"]
-                              + pair["convolutions"]["launches"]))
+                              + pair["convolutions"]["launches"] + kpcn["launches"]["conv2d"],
+                              kpn_apply=kpcn["launches"]["kpn_apply"]))
 
 
 # Dataset generation (the data phase): runs/gen_dataset_r2.py's recipe
@@ -3425,6 +3586,7 @@ def main() -> None:
     phase("train", t0)
     print(json.dumps({"train": trn}))
     measured["conv2d"] = conv_cases(trn["conv_layers"])
+    measured["kpn_apply"] = trn["kpcn"]["kernel_cases"]
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -3487,6 +3649,7 @@ def main() -> None:
              "rotfused_split": split_launches,
              "microops": micro_launches}
     drives = {"rotate_planar_sum_fused": "fused_resolve", "adam_update": "train", "conv2d": "train",
+              "kpn_apply": "train",
               **{name: "rotfused_split" for name in SPLIT},
               **{name: "microops" for name in MICROOPS}}
     rows = []

@@ -9,7 +9,8 @@ neither it nor JAX. It keeps the JAX package's layout:
   ops/    the hand-written CUDA kernels (csrc/*.cu) with their plain
           versions; the deposit splats
   post/   tone maps and their inverse, tracer-pair post-processing
-  nn/     the denoiser UNet (inference and training), its losses, the
+  nn/     the denoiser UNet (inference and training), KPCN (training; no
+          counterpart in the JAX package), their losses, the
           datasets and on-device batches, the Trainer with its checkpoints,
           tiled inference and the blends, export (reference .pth,
           TorchScript, ONNX), the training display

@@ -1,5 +1,5 @@
 // The training step's convolutions, for sm_90a: float32 implicit GEMMs over
-// the whole batch in NCHW, stride 1, kernel 1x1 or 3x3, zero padding.
+// the whole batch in NCHW, stride 1, kernel 1x1, 3x3 or 5x5, zero padding.
 // One launch for the forward, one for the data gradient and one for the
 // weight gradient (with one for the bias gradient's partial sums), each
 // followed by a reduction launch where the sum is split across blocks.
@@ -41,8 +41,8 @@
 // for two blocks an SM), so the copies of the next slices overlap the
 // products of this one. A forward step takes one tap of BK input channels, so its
 // offsets and the padding's test are the block's and not each element's.
-// The nine taps of a 3x3 convolution read the same input lines, which stay
-// in L1.
+// The nine taps of a 3x3 convolution (25 of a 5x5) read the same input
+// lines, which stay in L1.
 // Each thread accumulates an 8 x 8 register tile with FFMA from two float4
 // reads of each operand a depth row. Every flush depth (the direction's:
 // 128 rows, 64, or one tap's channels for the data gradient, as PyTorch
@@ -681,8 +681,8 @@ cudaError_t wgrad_tile(int tile, const float* in, const float* dy, float* dw, fl
 }
 
 bool valid(const Shape& s, int ks, int splits) {
-  return (ks == 1 || ks == 3) && s.n > 0 && s.cin > 0 && s.cout > 0 && s.ho > 0 && s.wo > 0 &&
-         s.pad >= 0 && s.pad < ks && s.ho == s.hi + 2 * s.pad - ks + 1 &&
+  return (ks == 1 || ks == 3 || ks == 5) && s.n > 0 && s.cin > 0 && s.cout > 0 && s.ho > 0 &&
+         s.wo > 0 && s.pad >= 0 && s.pad < ks && s.ho == s.hi + 2 * s.pad - ks + 1 &&
          s.wo == s.wi + 2 * s.pad - ks + 1 && splits >= 1;
 }
 
@@ -717,8 +717,10 @@ extern "C" int litbox_conv_fwd(const float* in, const float* w, float* bt, const
       w, bt, A, B, KK, data_grad == 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)(ks == 1 ? fwd_tile<1>(tile, in, bt, bias, out, ws, s, data_grad != 0, splits, st)
-                       : fwd_tile<3>(tile, in, bt, bias, out, ws, s, data_grad != 0, splits, st));
+  const bool dg = data_grad != 0;
+  return (int)(ks == 1   ? fwd_tile<1>(tile, in, bt, bias, out, ws, s, dg, splits, st)
+               : ks == 3 ? fwd_tile<3>(tile, in, bt, bias, out, ws, s, dg, splits, st)
+                         : fwd_tile<5>(tile, in, bt, bias, out, ws, s, dg, splits, st));
 }
 
 // The weight gradient dw (cout, cin, ks, ks) and the bias gradient db (cout,
@@ -734,6 +736,7 @@ extern "C" int litbox_conv_wgrad(const float* in, const float* dy, float* dw, fl
   const Shape s = shape(n, cin, hi, wi, cout, ho, wo, 0);
   if (!valid(s, ks, splits) || ws == nullptr) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(ks == 1 ? wgrad_tile<1>(tile, in, dy, dw, db, ws, s, splits, st)
-                       : wgrad_tile<3>(tile, in, dy, dw, db, ws, s, splits, st));
+  return (int)(ks == 1   ? wgrad_tile<1>(tile, in, dy, dw, db, ws, s, splits, st)
+               : ks == 3 ? wgrad_tile<3>(tile, in, dy, dw, db, ws, s, splits, st)
+                         : wgrad_tile<5>(tile, in, dy, dw, db, ws, s, splits, st));
 }

@@ -15,13 +15,19 @@ A stage's scenes are decoded once on the host and live on the card as
 
 Each sampler is a draw function (`draw`, the per-item random numbers from a
 `torch.Generator` on the stage's device) and a batch function that takes
-explicit draws (`sample_batch_from`, `sample_batch_pair_from`), so the
-same draws can be given to another implementation. Nothing goes through
-the host: a step's batch costs no host sync.
+explicit draws (`sample_batch_from`, `sample_batch_pair_from`,
+`sample_batch_kpcn_from`), so the same draws can be given to another
+implementation. Nothing goes through the host: a step's batch costs no host
+sync.
 
-`DeviceStages.sample` and `sample_pair` record the span `data.sample` (the
-host's issue of the draws and gathers; core/spans.py) and the counter
-`data.sample_bytes` (the bytes of the tensors they return).
+A stage may also hold each scene's albedo (N, H, W, 3) and
+transmissibility (N, H, W, 1), KPCN's auxiliary buffers, which
+`sample_kpcn` crops and turns with the tracers' draws.
+
+`DeviceStages.sample`, `sample_pair` and `sample_kpcn` record the span
+`data.sample` (the host's issue of the draws and gathers; core/spans.py)
+and the counter `data.sample_bytes` (the bytes of the tensors they
+return).
 """
 
 from __future__ import annotations
@@ -123,6 +129,17 @@ def sample_batch_pair_from(data_a, data_b, data_ref, d: Draws, crop: int, rgb: b
     return torch.where(idn, ref, a), torch.where(idn, ref, b), ref
 
 
+def sample_batch_kpcn_from(data_a, data_b, data_ref, data_albedo, data_trans, d: Draws,
+                           crop: int):
+    """(a, b, albedo, trans, ref) of the draws: every buffer cropped and
+    turned alike, the tracers neither swapped nor replaced (the features
+    are symmetric in them)."""
+    rows, cols = _crop_index(d, crop)
+    a, b, ref, albedo, trans = (_gather(x, d, rows, cols, True)
+                                for x in (data_a, data_b, data_ref, data_albedo, data_trans))
+    return a, b, albedo, trans, ref
+
+
 def sample_batch(data_a, data_b, data_ref, generator: torch.Generator, batch: int,
                  crop: int, rgb: bool, n2n_p: float = 0.0):
     """Draw one (inputs, targets) batch on the stage tensors' device."""
@@ -144,7 +161,10 @@ class DeviceStages:
     """Stage tensors resident on a device, and their samplers."""
 
     def __init__(self, stages: dict[str, tuple], device: str | torch.device = "cuda"):
-        """stages: name -> (a, b, ref) numpy arrays from stack_stage."""
+        """stages: name -> (a, b, ref) arrays from stack_stage or tensors,
+        or (a, b, ref, albedo, trans) for KPCN; a tensor already on the
+        device in float32 is held as it is, not copied (stages may share
+        their scenes' albedo and transmissibility)."""
         self.device = torch.device(device)
         self.data = {name: tuple(torch.as_tensor(x, dtype=torch.float32,
                                                  device=self.device) for x in arrs)
@@ -152,7 +172,7 @@ class DeviceStages:
 
     def sample(self, name: str, generator: torch.Generator, batch: int, crop: int,
                rgb: bool, n2n_p: float = 0.0):
-        a, b, r = self.data[name]
+        a, b, r = self.data[name][:3]
         with spans.span("data.sample"):
             out = sample_batch(a, b, r, generator, batch, crop, rgb, n2n_p)
         spans.count("data.sample_bytes", sum(x.nbytes for x in out))
@@ -160,8 +180,20 @@ class DeviceStages:
 
     def sample_pair(self, name: str, generator: torch.Generator, batch: int, crop: int,
                     rgb: bool, identity_p: float = 0.0):
-        a, b, r = self.data[name]
+        a, b, r = self.data[name][:3]
         with spans.span("data.sample"):
             out = sample_batch_pair(a, b, r, generator, batch, crop, rgb, identity_p)
+        spans.count("data.sample_bytes", sum(x.nbytes for x in out))
+        return out
+
+    def sample_kpcn(self, name: str, generator: torch.Generator, batch: int, crop: int):
+        """A KPCN batch (a, b, albedo, trans, ref), (batch, crop, crop, C),
+        from a stage that holds albedo and transmissibility."""
+        data = self.data[name]
+        if len(data) != 5:
+            raise ValueError(f"stage {name!r} holds no albedo and transmissibility")
+        with spans.span("data.sample"):
+            d = draw(generator, data[0].shape, batch, crop, 0.0)
+            out = sample_batch_kpcn_from(*data, d, crop)
         spans.count("data.sample_bytes", sum(x.nbytes for x in out))
         return out

@@ -5,6 +5,8 @@ HdrLoss: adaptive-weighted L2 + Sobel gradient L1 + plain L1
 (litbox_loss.py:8-75), production coefficients alpha=1.5, beta=0.4,
 gamma=0.2, base_weight=0.5 (train_litbox_denoiser.py:44-47,179).
 SSIM is provided for evaluation parity (litbox_loss.py:156-198).
+KPCN's loss (`log1p_l1`) is the L1 in the log1p domain its kernel is
+applied in.
 
 Images are NHWC, as in the JAX package. The 3x3 Sobel filters and SSIM's
 Gaussian window are grouped `F.conv2d` calls in float32 ('same' zero
@@ -109,6 +111,13 @@ def hdr_loss(pred: torch.Tensor, target: torch.Tensor,
                    - torch.log2(_max(raw_target, 0.0) + cfg.log_eps))
         loss = loss + cfg.log_l1 * torch.mean(rel)
     return loss
+
+
+def log1p_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """KPCN's loss, the mean of |pred - log1p(target)| (Bako et al. 2017,
+    the specular branch's transform): pred is already in the log1p domain,
+    target linear, both of one layout. |x| has jnp.abs's slope 1 at 0."""
+    return torch.mean(_abs(pred - torch.log1p(target)))
 
 
 def _gaussian_window(size: int, sigma: float, device) -> torch.Tensor:

@@ -30,6 +30,13 @@ the display and both losses); `select_random_channel` records
 `data.channel` (drawing the channels and making them, `Batch.channel`) and
 the copy to the device `train.h2d`, with its bytes in `train.h2d_bytes`.
 
+With `TrainConfig.kpcn` set the Trainer trains KPCN (nn/kpcn.py) in place
+of the UNet: `train_batch_kpcn_async` takes (A, B, albedo,
+transmissibility, reference) batches, and inside `train.forward` its loss
+records `data.features` around the feature builder (its bytes in
+`data.features_bytes`) and `train.kernel_apply` around the reconstruction
+(ops/kpn.py, whose launches count in `train.kpn_apply`).
+
 `save` writes the JAX package's npz layout: `params:<flax path>`,
 `stats:<flax path>`, the optimizer under optax's paths (`opt:2/0/.count`,
 `opt:2/0/.mu/...`, `opt:2/0/.nu/...`, `opt:2/1/.count` with a schedule),
@@ -51,9 +58,10 @@ import torch
 
 from .. import convert
 from ..core import spans
-from ..ops import adam, conv
+from ..ops import adam, conv, kpn
+from . import kpcn
 from .dataset import Batch, DenoiserDataset
-from .loss import HdrLossConfig, hdr_loss
+from .loss import HdrLossConfig, hdr_loss, log1p_l1
 from .unet import (LitboxDenoiserNet, TransformConfig, init_weights, post_transform,
                    pre_transform)
 
@@ -88,6 +96,10 @@ class TrainConfig:
     # reference, plus raw_loss_weight times the raw pair-mean output loss.
     pair_composition: bool = False
     raw_loss_weight: float = 0.5
+    # Train KPCN of these sizes in place of the UNet (None: the UNet, and
+    # the fields above that describe it). The JAX package has no KPCN, so
+    # a checkpoint, which either package loads, leaves this field out.
+    kpcn: kpcn.KpcnConfig | None = None
 
 
 def load_train_config(checkpoint_path: str) -> TrainConfig:
@@ -181,12 +193,17 @@ class Trainer:
     def __init__(self, cfg: TrainConfig, device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
-        net = LitboxDenoiserNet(
-            unet_size=cfg.unet_size, initial_features=cfg.initial_features,
-            padding_mode=cfg.padding_mode, use_sigmoid=cfg.use_sigmoid,
-            global_residual=cfg.global_residual, out_channels=3 if cfg.rgb else 1)
-        self.model = net.to(self.device)
-        init_weights(net, torch.Generator(device=self.device).manual_seed(cfg.seed))
+        generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        if cfg.kpcn is not None:
+            self.model = kpcn.KPCN(cfg.kpcn).to(self.device)
+            kpcn.init_weights(self.model, generator)
+        else:
+            net = LitboxDenoiserNet(
+                unet_size=cfg.unet_size, initial_features=cfg.initial_features,
+                padding_mode=cfg.padding_mode, use_sigmoid=cfg.use_sigmoid,
+                global_residual=cfg.global_residual, out_channels=3 if cfg.rgb else 1)
+            self.model = net.to(self.device)
+            init_weights(net, generator)
         self.params = dict(self.model.named_parameters())
         self.optimizer = Optimizer(self.params, cfg)
         self.global_step = 0
@@ -230,6 +247,18 @@ class Trainer:
                 loss = loss + cfg.raw_loss_weight * raw
         return loss
 
+    def kpcn_loss(self, a, b, albedo, trans, ref) -> torch.Tensor:
+        """KPCN's loss of one batch ((N, H, W, C) tensors on the device):
+        the 22 features, the trunk's logits, the reconstruction of the
+        colour log1p((A + B) / 2), and the L1 against log1p(ref)."""
+        with spans.span("data.features"):
+            feats, colour = kpcn.features(a, b, albedo, trans)
+        spans.count("data.features_bytes", feats.nbytes + colour.nbytes)
+        logits = self.model(feats)
+        with spans.span("train.kernel_apply"):
+            out = kpn.kernel_apply(logits, colour)
+        return log1p_l1(out.permute(0, 2, 3, 1), ref)
+
     def gradients(self, loss_fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
         """loss_fn(*args) and its backward under conv.step_convolutions, with
         each parameter's gradient in its .grad; returns the loss, detached."""
@@ -267,6 +296,13 @@ class Trainer:
         if not self.cfg.pair_composition:
             raise ValueError("train_batch_pair_async needs TrainConfig.pair_composition")
         return self._step(self.pair_loss, a, b, ref)
+
+    def train_batch_kpcn_async(self, a, b, albedo, trans, ref) -> torch.Tensor:
+        """One KPCN step (TrainConfig.kpcn) on a DeviceStages.sample_kpcn
+        batch; returns the device loss like train_batch_async."""
+        if self.cfg.kpcn is None:
+            raise ValueError("train_batch_kpcn_async needs TrainConfig.kpcn")
+        return self._step(self.kpcn_loss, a, b, albedo, trans, ref)
 
     def train_batch(self, inputs, targets) -> float:
         """One step and the read of its loss, which waits for the device."""
@@ -352,10 +388,15 @@ class Trainer:
         return arrays
 
     def save(self, path: str, include_optimizer: bool = True):
+        if self.cfg.kpcn is not None:
+            raise ValueError("checkpoints hold the UNet in the JAX package's layout; "
+                             "KPCN has none there")
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez(path, **self._arrays(include_optimizer))
+        cfg = dataclasses.asdict(self.cfg)
+        del cfg["kpcn"]
         with open(path + ".json", "w") as f:
-            json.dump(dataclasses.asdict(self.cfg), f, default=str)
+            json.dump(cfg, f, default=str)
 
     def load(self, path: str):
         """Load a checkpoint of either package; leaves the file lacks keep

@@ -1,5 +1,5 @@
-"""The training step's convolutions: float32, NCHW, stride 1, a 1x1 or 3x3
-kernel with zero padding, over the whole batch, forward and backward.
+"""The training step's convolutions: float32, NCHW, stride 1, a 1x1, 3x3 or
+5x5 kernel with zero padding, over the whole batch, forward and backward.
 
 On the card each direction is one hand-written implicit GEMM
 (`csrc/conv.cu`): the forward, the data gradient (the gradient of the
@@ -16,12 +16,13 @@ largest device operations.
 
 `step_convolutions(device)` surrounds a training step's forward and
 backward: on a CUDA device it turns cuDNN off and routes `convolve`, what
-the net's convolutions (`nn.unet.StepConv2d`, the sharded step's channel
-slices) call, to `conv2d`; elsewhere it changes nothing. `conv2d` alone
-places a call: CPU tensors take `F.conv2d`; CUDA tensors take the kernels
-or the call raises, so every convolution of the net in a step on a card
-runs the kernels (the loss's Sobel filters, nn/loss.py, are not the net's
-and keep PyTorch's own grouped convolution). Inside a step each call the
+the net's convolutions (`nn.unet.StepConv2d`, in the UNet and in KPCN's
+trunk, and the sharded step's channel slices) call, to `conv2d`;
+elsewhere it changes nothing. `conv2d` alone places a call: CPU tensors
+take `F.conv2d`; CUDA tensors take the kernels or the call raises, so
+every convolution of the net in a step on a card runs the kernels (the
+loss's Sobel filters, nn/loss.py, are not the net's and keep PyTorch's own
+grouped convolution). Inside a step each call the
 kernels serve counts one in `train.conv_kernel` (core/spans.py). Outside
 a step, `convolve` is nn.Conv2d's own path, untouched. `conv2d.launches`
 counts the kernel directions launched (the forward, the data gradient,
@@ -63,8 +64,20 @@ BIAS_CHUNK = 16384
 CARD_BLOCKS = 264
 # The fewest depth steps a split takes.
 MIN_SPLIT_STEPS = 16
+# The most sums of its tile a split of the weight gradient adds into its
+# running total, whatever the card's waves (a group's register tile joins
+# the total every FLUSH_ROWS of its depth rows, csrc/conv.cu
+# kFlushWeightGrad). Longer running totals stray further from float64 than
+# PyTorch's per-item products: KPCN's 100 -> 441 layer over 64 x 65^2
+# pixels in three splits of 1,414 sums read 2.35 times PyTorch's distance.
+# The UNet cells' plans take at most 80.
+MAX_SPLIT_FLUSHES = 256
+FLUSH_ROWS = 64
 # Offsets inside the kernels are 32-bit.
 MAX_ELEMENTS = 2**31 - 1
+# The square kernels the launches are built for (csrc/conv.cu fwd_tile and
+# wgrad_tile): the UNets' 1x1 and 3x3, KPCN's 5x5.
+KERNEL_SIZES = (1, 3, 5)
 
 
 def _tile(channels: int) -> int:
@@ -72,15 +85,18 @@ def _tile(channels: int) -> int:
     return 0 if channels > 64 else 1 if channels > 32 else 2 if channels > 16 else 3
 
 
-def _splits(tiles: int, steps: int) -> int:
+def _splits(tiles: int, steps: int, least: int = 1) -> int:
     """How many blocks share each tile's depth of `steps` steps: the count,
-    up to two waves of CARD_BLOCKS blocks in all and MIN_SPLIT_STEPS steps
-    a split, that takes the fewest waves of the card for its work (the
-    fewest splits among equals), with no split empty."""
+    from `least` up to two waves of CARD_BLOCKS blocks in all and
+    MIN_SPLIT_STEPS steps a split (up to twice `least` where `least` is
+    more), that takes the fewest waves of the card for its work (the fewest
+    splits among equals), with no split empty."""
     most = min(steps // MIN_SPLIT_STEPS, -(-2 * CARD_BLOCKS // tiles))
+    if least > 1 and least > most:
+        most = min(2 * least, steps)
     if most < 2:
         return 1
-    want = min(range(1, most + 1),
+    want = min(range(least, most + 1),
                key=lambda n: fractions.Fraction(-(-tiles * n // CARD_BLOCKS), n))
     per = -(-steps // want)
     return -(-steps // per)
@@ -101,11 +117,24 @@ def plan_forward(pixels: int, channels: int, in_channels: int, k: int) -> tuple[
 def plan_weight_grad(images: int, plane: int, channels: int, depth: int) -> tuple[int, int]:
     """(tile, splits) of the weight gradient: `channels` output channels,
     `depth` taps (input channels * k * k), a sum over `images` planes of
-    `plane` output pixels."""
+    `plane` output pixels, no split adding more than MAX_SPLIT_FLUSHES sums
+    of its tile into its total."""
     tile = _tile(channels)
     bm, bn, bk = WEIGHT_GRAD_TILES[tile]
     tiles = -(-depth // bm) * -(-channels // bn)
-    return tile, _splits(tiles, images * -(-plane // bk))
+    plane_steps = -(-plane // bk)
+    steps = images * plane_steps
+    return tile, _splits(tiles, steps, -(-steps // (MAX_SPLIT_FLUSHES
+                                                    * flush_steps(tile, plane_steps))))
+
+
+def flush_steps(tile: int, plane_steps: int) -> int:
+    """The depth steps between a weight-gradient tile's joins of its running
+    total (csrc/conv.cu conv_wgrad_kernel): FLUSH_ROWS rows of its thread
+    groups' (256 * 64 / (BM * BN) groups, a step's pixels shared among
+    them), and at least once a plane."""
+    bm, bn, bk = WEIGHT_GRAD_TILES[tile]
+    return min(FLUSH_ROWS // (bk * bm * bn // (256 * 64)), plane_steps)
 
 
 def _out_size(size: int, k: int, padding: int) -> int:
@@ -115,7 +144,7 @@ def _out_size(size: int, k: int, padding: int) -> int:
 def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
            padding: int) -> None:
     """What the kernels take, before anything reaches the card: x (N, Cin,
-    H, W) and weight (Cout, Cin, k, k) with k 1 or 3, padding below k, bias
+    H, W) and weight (Cout, Cin, k, k) with k in KERNEL_SIZES, padding below k, bias
     (Cout,) or None, contiguous float32 on the current CUDA device, and
     every tensor of the three directions under 2^31 elements."""
     dtypes = {t.dtype for t in (x, weight, bias) if t is not None}
@@ -126,8 +155,9 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
                          f"and {tuple(weight.shape)}")
     cout, cin, kh, kw = weight.shape
     n, c, h, w = x.shape
-    if kh != kw or kh not in (1, 3):
-        raise ValueError(f"conv2d: the kernels take 1x1 and 3x3 weights, got {kh}x{kw}")
+    if kh != kw or kh not in KERNEL_SIZES:
+        raise ValueError(f"conv2d: the kernels take square weights, 1x1 and 3x3 as the UNets "
+                         f"have them and 5x5 as KPCN has them; got {kh}x{kw}")
     if c != cin:
         raise ValueError(f"conv2d: input of {c} channels for a weight of {cin}")
     if not 0 <= padding < kh:

@@ -53,6 +53,8 @@ _SIGNATURES = {
     "litbox_adam_update": [_P, _I, _P, _L, _P, _I] + [_P] * 3 + [_F] * 8 + [_P],
     "litbox_conv_fwd": [_P] * 6 + [_I] * 12 + [_P],
     "litbox_conv_wgrad": [_P] * 5 + [_I] * 10 + [_P],
+    "litbox_kpn_forward": [_P] * 4 + [_I] * 4 + [_P],
+    "litbox_kpn_backward": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 

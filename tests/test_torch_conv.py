@@ -16,7 +16,9 @@ On the card (`-m cuda`; this file imports neither JAX nor the JAX package):
 every distinct convolution of the two training cells' nets and of the
 parallel step's net (chip_smoke.py) against float64 on the CPU, within twice the distance of PyTorch's own float32 path, two
 calls equal bit for bit, and the net's paddings (reflect, zeros,
-padding=1) through the kernels.
+padding=1) through the kernels; KPCN's three 5x5 layers at the
+kpcn-21-train cell's 64 patches of 65^2 the same way, against float64 on
+the card.
 """
 
 import pytest
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from litbox_tpu_torch.core import spans
+from litbox_tpu_torch.nn import kpcn
 from litbox_tpu_torch.nn.unet import Conv3x3, LitboxDenoiserNet, StepConv2d, conv_shapes
 from litbox_tpu_torch.ops import conv, cuda_lib
 from litbox_tpu_torch.ops.conv import step_convolutions
@@ -38,6 +41,9 @@ NETS = {"unet5": (4, 256, dict(unet_size=5, initial_features=32)),
         "par": (4, 64, dict(unet_size=5, initial_features=32))}
 LAYERS = [(net, shape) for net, (b, crop, args) in NETS.items()
           for shape in conv_shapes(b, crop, crop, **args)]
+# KPCN's trunk at the kpcn-21-train cell's batch: 22 -> 100, 100 -> 100 and
+# 100 -> 441 channels, 5x5 with padding 2, on 64 patches of 65^2.
+KPCN_LAYERS = [("kpcn", shape) for shape in kpcn.conv_shapes(64, 65, 65)]
 
 
 def _rand(shape, seed, dtype=torch.float32, device="cpu"):
@@ -134,7 +140,7 @@ def _no_build():
 
 @pytest.mark.parametrize("args,error,match", [
     ((_meta((2, 4, 8, 8), torch.float64), _meta((8, 4, 3, 3)), None, 1), TypeError, "float32"),
-    ((_meta((2, 4, 8, 8)), _meta((8, 4, 5, 5)), None, 2), ValueError, "1x1 and 3x3"),
+    ((_meta((2, 4, 8, 8)), _meta((8, 4, 7, 7)), None, 2), ValueError, "1x1 and 3x3"),
     ((_meta((2, 4, 8, 8)), _meta((8, 4, 3, 1)), None, 0), ValueError, "1x1 and 3x3"),
     ((_meta((2, 4, 8, 8)), _meta((8, 4, 3, 3)), None, 3), ValueError, "padding 3"),
     ((_meta((2, 4, 8, 8)), _meta((8, 4, 1, 1)), None, 1), ValueError, "padding 1"),
@@ -254,9 +260,12 @@ def test_plans_split_only_small_grids_with_no_empty_split():
     gradient's tiles follow the output channels, and a sum is split only
     where the tiles are fewer than two waves of the card, into no more
     blocks than two waves and splits of MIN_SPLIT_STEPS steps or more, none
-    of them empty."""
+    of them empty; a weight gradient's split adds at most MAX_SPLIT_FLUSHES
+    sums of its tile into its total, and where that asks for more splits
+    than two waves (KPCN's 100 -> 441 layer alone), it takes no more than
+    twice the splits it asks for."""
     assert len(LAYERS) == 102
-    for _, (n, cin, cout, h, w, k, pad) in LAYERS:
+    for net, (n, cin, cout, h, w, k, pad) in LAYERS + KPCN_LAYERS:
         ho, wo = h + 2 * pad - k + 1, w + 2 * pad - k + 1
         for pixels, ch, cin_ in ((n * ho * wo, cout, cin), (n * h * w, cin, cout)):
             tile, splits = conv.plan_forward(pixels, ch, cin_, k)
@@ -272,8 +281,13 @@ def test_plans_split_only_small_grids_with_no_empty_split():
         steps = n * -(-(ho * wo) // bk)
         per = -(-steps // splits)
         tiles = -(-(cin * k * k) // bm) * -(-cout // bn)
-        assert splits == 1 or tiles * (splits - 1) < 2 * conv.CARD_BLOCKS
-        assert (splits - 1) * per < steps
+        flush = conv.flush_steps(tile, -(-(ho * wo) // bk))
+        least = -(-steps // (conv.MAX_SPLIT_FLUSHES * flush))
+        if (net, cout) == ("kpcn", 441):
+            assert tiles * (least - 1) >= 2 * conv.CARD_BLOCKS and splits <= 2 * least
+        else:
+            assert splits == 1 or tiles * (splits - 1) < 2 * conv.CARD_BLOCKS
+        assert (splits - 1) * per < steps and -(-per // flush) <= conv.MAX_SPLIT_FLUSHES
 
 
 def test_every_layer_of_the_nets_is_one_the_kernels_take():
@@ -282,6 +296,7 @@ def test_every_layer_of_the_nets_is_one_the_kernels_take():
     global_residual with padding=1)."""
     pads = {(k, pad) for _, (n, cin, cout, h, w, k, pad) in LAYERS}
     assert pads == {(1, 0), (3, 0), (3, 1)}
+    assert {(s[5], s[6]) for _, s in KPCN_LAYERS} == {(5, 2)}
     assert len({s for _, s in LAYERS}) == len(LAYERS)
     net = _small_net()
     assert all(isinstance(m.conv, StepConv2d) for m in net.modules() if isinstance(m, Conv3x3))
@@ -316,7 +331,7 @@ def test_takes_only_cuda_float32_layers(monkeypatch):
     (torch.nn.Conv2d(4, 8, 3, padding=1, padding_mode="reflect"), "stride 1"),
     (torch.nn.Conv2d(4, 8, 3, padding=(1, 0)), "stride 1"),
     (torch.nn.Conv2d(4, 8, 3, padding="same"), "stride 1"),
-    (torch.nn.Conv2d(4, 8, 5, padding=2), "1x1 and 3x3"),
+    (torch.nn.Conv2d(4, 8, 7, padding=3), "1x1 and 3x3"),
 ])
 def test_routed_float32_layers_the_kernels_cannot_take_raise(monkeypatch, layer, match):
     """Inside a step, a float32 convolution off the CPU that the kernels
@@ -358,13 +373,22 @@ def test_kernels_match_float64_at_every_layer(dev, net, shape):
     gradient of one of the nets' convolutions: within twice the distance
     of PyTorch's own float32 path (cuDNN off) from float64 on the CPU, of
     each output's largest magnitude; two calls equal bit for bit."""
+    _hold_to_float64(shape, dev, "cpu")
+
+
+def _hold_to_float64(shape, dev, f64_device):
+    """One layer's four outputs through the kernels: within twice the
+    distance of PyTorch's float32 path (cuDNN off) from float64 computed on
+    `f64_device`, and two calls equal bit for bit."""
     n, cin, cout, h, w, k, pad = shape
     x = _rand((n, cin, h, w), 20)
     wt = _rand((cout, cin, k, k), 21) / (cin * k * k) ** 0.5
     b = _rand((cout,), 22)
     ho, wo = h + 2 * pad - k + 1, w + 2 * pad - k + 1
     gy = _rand((n, cout, ho, wo), 23)
-    want = _directions(F.conv2d, x.double(), wt.double(), b.double(), pad, gy.double())
+    want = [t.cpu() for t in _directions(F.conv2d, *(t.to(f64_device, torch.float64)
+                                                      for t in (x, wt, b)), pad,
+                                         gy.to(f64_device, torch.float64))]
     card = [t.to(dev) for t in (x, wt, b)]
     with torch.backends.cudnn.flags(enabled=False):
         torch_path = _directions(F.conv2d, *card, pad, gy.to(dev))
@@ -376,6 +400,16 @@ def test_kernels_match_float64_at_every_layer(dev, net, shape):
     assert all(torch.equal(a, c) for a, c in zip(kern, again))
     got, limit = _distance(kern, want), _distance(torch_path, want)
     assert all(g <= 2 * t for g, t in zip(got, limit)), (got, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [s for _, s in KPCN_LAYERS],
+                         ids=["x".join(map(str, s)) for _, s in KPCN_LAYERS])
+def test_kpcn_layers_match_float64(dev, shape):
+    """KPCN's 5x5 layers at the cell's shapes, each direction as the
+    nets' layers are held; float64 on the card (cuDNN's float64 path: a
+    CPU would take minutes a layer)."""
+    _hold_to_float64(shape, dev, dev)
 
 
 @pytest.mark.cuda
